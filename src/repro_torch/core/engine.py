@@ -1,0 +1,412 @@
+"""PSelInvEngine — the analyze / prepare / solve session API of the
+PyTorch port (counterpart of ``repro/core/engine.py``).
+
+    engine = PSelInvEngine.analyze(A_or_structure, b=8, grid=Grid(4, 2))
+    out = engine.solve(A)                  # value-only hot path
+
+``analyze`` performs symbolic analysis → CommPlan IR → overlapped round
+schedule → PlanLint → per-rank index tables uploaded to the session's
+device **once**, and caches the session keyed on (block-structure hash,
+supernode width, grid, :class:`PlanOptions`, device). ``solve`` moves
+values only: the host numeric factorization (when given a matrix), one
+host→device copy of the value shards, and the sweep — no table copy and
+no read-back inside it.
+
+All ``P = pr·pc`` ranks of the grid run on the one device as a leading
+rank axis of every tensor (see ``pselinv_dist``); a batch of B
+same-structure matrices is one more axis in front (``(B, P, nbr, nbc, b,
+b)``), sharing the tables. ``bucket=True`` pads a batch to the next power
+of two, as the JAX engine does for its compiled-program population.
+
+Entry points default to ``device="cuda"`` and raise when no card is
+present; pass ``device="cpu"`` to run the plain versions of the kernels
+on the host (the tests do)."""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import ClassVar, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import block_gemm as _block_gemm
+from ..obs.registry import REGISTRY
+from ..obs.trace import TRACER
+from .plan import PlanOptions, peak_arena_blocks, ppermute_round_count
+from .pselinv_dist import (PSelInvProgram, SweepTables, analyze_structure,
+                           build_program, make_sweep_overlapped, pad_nb,
+                           prepare_values, prepare_values_many,
+                           upload_tables, validate_uniform_widths)
+from .schedule import Grid2D
+from .symbolic import BlockStructure
+
+__all__ = ["Grid", "PlanOptions", "PSelInvEngine", "SolveValues",
+           "structure_key", "stack_values", "bucket_size",
+           "values_from_numpy", "resolve_device"]
+
+#: the session API's name for the 2-D process grid
+Grid = Grid2D
+
+
+class SolveValues(NamedTuple):
+    """One matrix's numeric payload in shard layout: ``Lh`` and ``Dinv``
+    shaped (P, nbr, nbc, b, b) — or (B, P, nbr, nbc, b, b) with a
+    leading batch axis — as tensors on the session's device."""
+    Lh: torch.Tensor
+    Dinv: torch.Tensor
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. ``"cuda"`` (the default of
+    every entry point) raises on a host without a card: nothing falls
+    back to the CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the GPU by "
+            "default — pass device='cpu' to run on the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def values_from_numpy(Lh, Dinv, device="cuda",
+                      dtype: torch.dtype | None = None) -> SolveValues:
+    """The JAX package's value shards (numpy, ``(…, P, nbr, nbc, b, b)``)
+    as the port's tensors on ``device`` — so both packages solve the same
+    inputs. ``dtype=None`` keeps the arrays' own precision."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        t = torch.as_tensor(np.ascontiguousarray(x))
+        return t.to(device=dev, dtype=dtype or t.dtype)
+
+    return SolveValues(conv(Lh), conv(Dinv))
+
+
+def stack_values(values: Sequence[SolveValues]) -> SolveValues:
+    """Stack per-matrix :class:`SolveValues` along a new leading batch
+    axis (same structure, many matrices)."""
+    return SolveValues(torch.stack([v.Lh for v in values]),
+                       torch.stack([v.Dinv for v in values]))
+
+
+def structure_key(bs: BlockStructure) -> str:
+    """Content hash of a block structure — the value-independent part of
+    the engine cache key (the same sha1 as the JAX engine's)."""
+    h = hashlib.sha1()
+    h.update(np.ascontiguousarray(bs.offsets, dtype=np.int64).tobytes())
+    h.update(np.ascontiguousarray(bs.parent, dtype=np.int64).tobytes())
+    for s in bs.struct:
+        h.update(np.ascontiguousarray(s, dtype=np.int64).tobytes())
+        h.update(b"|")
+    return h.hexdigest()
+
+
+def bucket_size(B: int) -> int:
+    """The padded batch bucket for B matrices: the next power of two."""
+    if B < 1:
+        raise ValueError(f"batch size must be >= 1, got {B}")
+    return 1 << (B - 1).bit_length()
+
+
+def _approx_nbytes(obj, _seen=None, _depth=0) -> int:
+    """Approximate resident bytes of a program/table object: the sum of
+    every reachable numpy array's ``nbytes`` (dataclasses, dicts, lists,
+    tuples walked; shared arrays counted once)."""
+    if _seen is None:
+        _seen = set()
+    if _depth > 16 or id(obj) in _seen:
+        return 0
+    if isinstance(obj, np.ndarray):
+        _seen.add(id(obj))
+        return int(obj.nbytes)
+    if isinstance(obj, (str, bytes, int, float, bool, complex,
+                        type(None))):
+        return 0
+    _seen.add(id(obj))
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return sum(_approx_nbytes(getattr(obj, f.name), _seen, _depth + 1)
+                   for f in dataclasses.fields(obj))
+    if isinstance(obj, dict):
+        return sum(_approx_nbytes(v, _seen, _depth + 1)
+                   for v in obj.values())
+    if isinstance(obj, (list, tuple, set, frozenset)):
+        return sum(_approx_nbytes(v, _seen, _depth + 1) for v in obj)
+    return 0
+
+
+def _is_matrix(x) -> bool:
+    """A numeric matrix (dense 2-D array or scipy sparse) as opposed to
+    prepared value shards."""
+    import scipy.sparse as sp
+    if sp.issparse(x):
+        return True
+    return isinstance(x, np.ndarray) and x.ndim == 2
+
+
+@dataclass
+class PSelInvEngine:
+    """One selected-inversion session: structure + grid + options bound
+    to device tables. Construct through :meth:`analyze`."""
+    bs: BlockStructure
+    b: int
+    nb: int
+    grid: Grid2D
+    options: PlanOptions
+    program: PSelInvProgram
+    device: torch.device
+    tables: SweepTables
+    key: Tuple = ()
+    solve_calls: int = 0
+    _table_bytes: Optional[int] = field(default=None, repr=False)
+    _last_solve_us: Optional[float] = field(default=None, repr=False)
+    _last_prepare_us: Optional[float] = field(default=None, repr=False)
+
+    # ---- the structure cache (class-level, all sessions) --------------
+    _cache: ClassVar["OrderedDict[Tuple, PSelInvEngine]"] = OrderedDict()
+    _cache_lock: ClassVar[threading.Lock] = threading.Lock()
+    #: LRU eviction bounds, as in the JAX engine: session count and the
+    #: summed per-engine table footprint (host tables + device tables)
+    cache_max: ClassVar[int] = 16
+    cache_max_bytes: ClassVar[int] = 1 << 30
+    cache_hits: ClassVar[int] = 0
+    cache_misses: ClassVar[int] = 0
+    cache_evictions: ClassVar[int] = 0
+
+    @classmethod
+    def analyze(cls, structure_or_A, b: int, grid: Grid2D,
+                options: PlanOptions = PlanOptions(), *,
+                device="cuda", verify: str | None = None,
+                verify_compiled: str | None = None) -> "PSelInvEngine":
+        """Symbolic analysis → CommPlan → schedule → PlanLint → device
+        tables, **once per structure and device**. Accepts a matrix
+        (symbolically factorized here) or a ready
+        :class:`BlockStructure`; returns the cached engine when an
+        identical (structure, b, grid, options, device) session exists.
+        ``verify`` overrides ``options.verify`` (the PlanLint mode);
+        ``verify_compiled`` must stay ``"off"`` (HloLint is not ported).
+
+        Only the default overlapped executor is ported: options that
+        select the level-serial (``overlap=False``) or stream
+        (``stream=True``) executor raise."""
+        dev = resolve_device(device)
+        if verify is not None:
+            options = dataclasses.replace(options, verify=verify)
+        if verify_compiled is not None:
+            options = dataclasses.replace(options,
+                                          verify_compiled=verify_compiled)
+        if not options.overlap or options.stream:
+            raise NotImplementedError(
+                "only the overlapped executor (PlanOptions(overlap=True, "
+                "stream=False)) is ported; the level-serial and stream "
+                "executors are not")
+        with TRACER.span("engine.analyze", b=b,
+                         grid=f"{grid.pr}x{grid.pc}") as sp:
+            if isinstance(structure_or_A, BlockStructure):
+                bs = structure_or_A
+                validate_uniform_widths(bs, b)
+                nb = pad_nb(bs.nsuper, grid.pr, grid.pc)
+            else:
+                with TRACER.span("analyze.symbolic"):
+                    bs, nb = analyze_structure(structure_or_A, b,
+                                               grid.pr, grid.pc)
+            sp.set(nb=nb)
+
+            key = (structure_key(bs), b, grid, options, str(dev))
+            with cls._cache_lock:
+                hit = cls._cache.get(key)
+                if hit is not None:
+                    cls.cache_hits += 1
+                    cls._cache.move_to_end(key)  # LRU: a hit stays warm
+                    sp.set(cache="hit")
+                    return hit
+                cls.cache_misses += 1
+            sp.set(cache="miss")
+
+            program = build_program(bs, nb, b, grid.pr, grid.pc,
+                                    options=options)
+            with TRACER.span("analyze.upload"):
+                tables = upload_tables(program, dev)
+            engine = cls(bs=bs, b=b, nb=nb, grid=grid, options=options,
+                         program=program, device=dev, tables=tables,
+                         key=key)
+        with cls._cache_lock:
+            # somebody may have raced us past the miss above; keep the
+            # first published session so `analyze` stays idempotent
+            engine = cls._cache.setdefault(key, engine)
+            cls._cache.move_to_end(key)
+            cls._evict_locked()
+        return engine
+
+    @classmethod
+    def _evict_locked(cls) -> None:
+        """LRU eviction under ``_cache_lock``: pop the front while the
+        session count exceeds ``cache_max`` or the summed table bytes
+        exceed ``cache_max_bytes`` — keeping at least the most recent
+        session so one over-budget structure still solves."""
+        def over():
+            if len(cls._cache) > cls.cache_max:
+                return True
+            return sum(e.table_bytes()
+                       for e in cls._cache.values()) > cls.cache_max_bytes
+        while len(cls._cache) > 1 and over():
+            cls._cache.popitem(last=False)
+            cls.cache_evictions += 1
+
+    @classmethod
+    def cache_bytes(cls) -> int:
+        with cls._cache_lock:
+            return sum(e.table_bytes() for e in cls._cache.values())
+
+    @classmethod
+    def clear_cache(cls) -> None:
+        with cls._cache_lock:
+            cls._cache.clear()
+            cls.cache_hits = cls.cache_misses = 0
+            cls.cache_evictions = 0
+
+    # ---- the sweep -----------------------------------------------------
+    def sweep(self, batched: bool = False):
+        """The session's overlapped sweep over its device tables.
+        Single-matrix signature: (Lh, Dinv) each (P, nbr, nbc, b, b);
+        batched: (B, P, nbr, nbc, b, b)."""
+        return make_sweep_overlapped(self.program, self.tables,
+                                     batched=batched)
+
+    # ---- the value-only hot path --------------------------------------
+    def prepare_values(self, A, dtype: torch.dtype | None = None
+                       ) -> SolveValues:
+        """Numeric host factorization of one matrix against the cached
+        structure → shards on the session's device (f64 unless
+        ``dtype``). No symbolic work."""
+        t0 = time.perf_counter()
+        with TRACER.span("engine.prepare_values"):
+            Lh, Dinv = prepare_values(A, self.bs, self.nb, self.b,
+                                      self.grid.pr, self.grid.pc)
+            out = values_from_numpy(Lh, Dinv, self.device, dtype)
+        self._last_prepare_us = (time.perf_counter() - t0) * 1e6
+        return out
+
+    def prepare_values_many(self, mats: Sequence,
+                            dtype: torch.dtype | None = None
+                            ) -> SolveValues:
+        """Batched numeric host factorization of B same-structure
+        matrices → stacked (B, P, nbr, nbc, b, b) shards on the device,
+        in one structure-driven pass."""
+        t0 = time.perf_counter()
+        with TRACER.span("engine.prepare_values_many", B=len(mats)):
+            Lh, Dinv = prepare_values_many(mats, self.bs, self.nb,
+                                           self.b, self.grid.pr,
+                                           self.grid.pc)
+            out = values_from_numpy(Lh, Dinv, self.device, dtype)
+        self._last_prepare_us = (time.perf_counter() - t0) * 1e6
+        return out
+
+    def _as_tensor(self, x, dtype):
+        if isinstance(x, np.ndarray):
+            x = torch.as_tensor(np.ascontiguousarray(x))
+        return x.to(device=self.device, dtype=dtype or x.dtype)
+
+    def solve(self, values, dtype: torch.dtype | None = torch.float32, *,
+              bucket: bool = False) -> torch.Tensor:
+        """Selected inversion of one matrix — or a whole batch.
+
+        ``values`` is a matrix (numeric-factorized here against the
+        cached structure), a :class:`SolveValues`, or a plain
+        ``(Lh, Dinv)`` pair of tensors or numpy arrays. Rank 5 ((P, nbr,
+        nbc, b, b)) solves one matrix; rank 6 ((B, P, nbr, nbc, b, b))
+        solves B same-structure matrices through one sweep. Returns the
+        A⁻¹ shards in the same layout, as a tensor on the session's
+        device. ``dtype`` casts the values (f32 default, as the JAX
+        engine); ``None`` keeps their own dtype.
+
+        ``bucket=True`` pads a batched solve up to the next power-of-2
+        bucket (:func:`bucket_size`) with zero-valued lanes and slices
+        the real results back out."""
+        if _is_matrix(values):
+            values = self.prepare_values(values)
+        Lh, Dinv = (self._as_tensor(v, dtype) for v in values)
+        if Lh.ndim not in (5, 6):
+            raise ValueError(
+                f"values must be rank 5 (single) or rank 6 (leading "
+                f"batch axis), got shape {tuple(Lh.shape)}")
+        self.solve_calls += 1
+        t0 = time.perf_counter()
+        with TRACER.span("engine.solve",
+                         B=Lh.shape[0] if Lh.ndim == 6 else 1):
+            if Lh.ndim == 6 and bucket:
+                B = Lh.shape[0]
+                Bp = bucket_size(B)
+                if Bp != B:
+                    pad = Lh.new_zeros((Bp - B,) + tuple(Lh.shape[1:]))
+                    out = self.sweep(batched=True)(
+                        torch.cat([Lh, pad]), torch.cat([Dinv, pad]))[:B]
+                else:
+                    out = self.sweep(batched=True)(Lh, Dinv)
+            else:
+                out = self.sweep(batched=(Lh.ndim == 6))(Lh, Dinv)
+        # dispatch wall, not device wall: the caller synchronizes
+        self._last_solve_us = (time.perf_counter() - t0) * 1e6
+        return out
+
+    def solve_many(self, mats: Sequence,
+                   dtype: torch.dtype | None = torch.float32, *,
+                   bucket: bool = False,
+                   batched_prep: bool = True) -> torch.Tensor:
+        """Numeric-factorize each same-structure matrix, stack along the
+        batch axis, and run ONE batched solve. ``batched_prep`` routes
+        the host factorization through :meth:`prepare_values_many`;
+        ``bucket`` pads the batch to its power-of-2 bucket."""
+        if batched_prep and len(mats) > 1:
+            vals = self.prepare_values_many(mats)
+        else:
+            vals = stack_values([self.prepare_values(A) for A in mats])
+        return self.solve(vals, dtype=dtype, bucket=bucket)
+
+    def table_bytes(self) -> int:
+        """Approximate resident bytes of this session's tables: the host
+        program's numpy arrays plus the device tables."""
+        if self._table_bytes is None:
+            self._table_bytes = (_approx_nbytes(self.program)
+                                 + self.tables.nbytes)
+        return self._table_bytes
+
+    def gemm_ops(self) -> int:
+        """Level-GEMM compute ops per solve — one kernel launch each."""
+        return sum(1 for ops in self.program.overlap_plan.compute_at
+                   for op in ops if op.kind == "gemm")
+
+    def stats(self) -> Dict[str, float]:
+        """Static schedule metrics of the cached program (ppermute round
+        count, peak per-rank arena blocks), cache health, the solve
+        counter, the last solve-dispatch and value-prep walls (µs), the
+        GEMM ops per solve and the process-wide block-GEMM kernel launch
+        count. Every scalar is published to ``REGISTRY`` under
+        ``selinv_engine_*``."""
+        ov = self.program.overlap_plan
+        cls = type(self)
+        out = {"ppermute_rounds": ppermute_round_count(ov),
+               "peak_arena_blocks": peak_arena_blocks(ov),
+               "table_bytes": self.table_bytes(),
+               "cache_engines": len(cls._cache),
+               "cache_hits": cls.cache_hits,
+               "cache_misses": cls.cache_misses,
+               "cache_evictions": cls.cache_evictions,
+               "solve_calls": self.solve_calls,
+               "last_solve_us": self._last_solve_us,
+               "prepare_us": self._last_prepare_us,
+               "gemm_ops_per_solve": self.gemm_ops(),
+               "gemm_launches": _block_gemm.launches}
+        for k, v in out.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                REGISTRY.gauge(f"selinv_engine_{k}",
+                               "engine.stats() gauge").set(v)
+        return out

@@ -1,0 +1,65 @@
+"""Public kernel entry points — the names of ``repro/kernels/ops.py`` that
+this slice ports, on top of the hand-written block GEMM.
+
+Every op takes leading batch dims. A CPU tensor runs the kernel's plain
+PyTorch version, a CUDA tensor the kernel (see ``block_gemm``); the JAX
+package's interpret-mode switch has no counterpart, because the tensor's
+device decides."""
+from __future__ import annotations
+
+import torch
+
+from .block_gemm import block_gemm as _block_gemm
+from .block_gemm import blocked_gemm
+
+__all__ = ["block_gemm", "block_gemm_acc", "pselinv_level_gemm",
+           "pselinv_round_gemm"]
+
+
+def block_gemm(a, b):
+    return _block_gemm(a, b)
+
+
+def block_gemm_acc(acc, a, b, alpha=-1.0):
+    """acc + alpha·(a@b) — the Schur-update form used by supernodal LU."""
+    return acc + _block_gemm(a, b, alpha=alpha)
+
+
+def pselinv_level_gemm(Ainv, Uh_m, out=None):
+    """The sweep's masked block-GEMM for one elimination-tree level:
+    ``partial[…, k, i] = Σ_j Ainv[…, i, j] @ Uh_m[…, k, j]ᵀ`` — all of a
+    level's supernodes, for every leading (batch, rank) index, in one
+    kernel launch.
+
+    Ainv: (…, nbr, nbc, b, b) local A⁻¹ block grids; Uh_m: (…, nk, nbc,
+    b, b) struct-masked Û stacks. Returns (…, nk, nbr, b, b) partial
+    products, written into ``out`` when given (e.g. a view of the sweep's
+    arena). The leading dims are flattened into the kernel's batch index
+    as views, so a strided arena slice is read where it lies."""
+    lead = Ainv.shape[:-4]
+    nbr, nbc, b = Ainv.shape[-4], Ainv.shape[-3], Ainv.shape[-1]
+    nk = Uh_m.shape[-4]
+    if Uh_m.shape[:-4] != lead:
+        raise ValueError(f"batch dims differ: {tuple(Ainv.shape)} vs "
+                         f"{tuple(Uh_m.shape)}")
+    a = Ainv.reshape((-1, nbr, nbc, b, b))
+    u = Uh_m.reshape((-1, nk, nbc, b, b))
+    o = None if out is None else out.view((-1, nk, nbr, b, b))
+    p = blocked_gemm(a, u, out=o)
+    return p.view(lead + (nk, nbr, b, b)) if out is None else out
+
+
+def pselinv_round_gemm(Ainv, Uh, cmask, out=None):
+    """Masked sweep GEMM keyed by a *round* of the overlapped stream: the
+    struct mask arrives per round boundary (whatever elimination-tree
+    level fires there).
+
+    Ainv: (…, nbr, nbc, b, b) local A⁻¹ grids; Uh: (…, nk, nbc, b, b) raw
+    Û stacks straight out of the comm arena; cmask: (…, nk, nbc) struct
+    mask of the firing level, bool or 0/1 values. Returns (…, nk, nbr, b,
+    b) partial products through :func:`pselinv_level_gemm`."""
+    if cmask.dtype == torch.bool:
+        Uh_m = torch.where(cmask[..., None, None], Uh, 0.0)
+    else:
+        Uh_m = Uh * cmask[..., None, None].to(Uh.dtype)
+    return pselinv_level_gemm(Ainv, Uh_m, out=out)
