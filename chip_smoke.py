@@ -4,25 +4,42 @@
 
 Run from the root of a checkout: it puts ``src`` on ``sys.path``, builds
 the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` into
-``build/kernels/`` and then, on the card:
+``build/kernels/`` (one nvcc per source, all started together) and then,
+on the card:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
    nvcc versions and the kernel build time;
-2. holds the block-GEMM kernel against its plain PyTorch version in f32,
-   bf16 and f64 on the shapes of ``tests/test_kernels.py`` and at the
-   main path's batched shapes, and times the kernel, the plain version
-   and a batched ``torch.matmul`` yardstick beside the card's bound;
+2. holds each kernel against its plain PyTorch version and times it
+   beside the card's bound, the plain version and one library call used
+   only as a yardstick: the block GEMM in f32, bf16 and f64 on the shapes
+   of ``tests/test_kernels.py`` and the main path's batched shapes
+   (``torch.matmul``); trsm in f32/bf16/f64 up to (4096, 256)
+   (``torch.linalg.solve_triangular``); RMSNorm in f32/bf16 up to
+   qwen3-32b's widths (``F.rms_norm``); flash attention in f32/bf16, causal
+   and not, up to qwen3-32b's (1, 4096, 64, 128)
+   (``F.scaled_dot_product_attention``);
 3. runs the main path — ``PSelInvEngine.analyze`` → ``prepare_values`` →
    ``solve`` on grid 4×2 — on the FEM-like (audikw_1 stand-in) and
    DG-like (DG_PNF14000 stand-in) matrices at full size, and checks the
    selected blocks against a dense f64 inverse computed on the card,
    bitwise-equal repeated solves, one kernel launch per planned GEMM op
    and the f32 solve against the f64 one;
-4. checks a bucketed ``solve_many`` against single solves, bitwise;
-5. writes every measured row to ``build/chip_smoke.json`` and prints the
-   kernels' JSON line, the card line and, last, the result.
+4. runs the serial path — ``factorize`` + ``selinv`` with the ``cuda`` and
+   ``torch`` backends in f64 — on the FEM matrix, against the dense
+   inverse and the engine's solve, with one trsm launch per block of
+   struct(K) and one block-GEMM launch per host-loop product, beside the
+   numpy backend's time and a traced split of where the time goes;
+5. checks a bucketed ``solve_many`` against single solves, bitwise;
+6. drives the ``ops`` entry points through the port's kernel benchmark
+   (``repro_torch.kernels.bench``) and, for RMSNorm and flash attention,
+   at qwen3-32b's widths in bf16, every output held against its plain
+   version and every kernel launched;
+7. writes every measured row to ``build/chip_smoke.json`` and prints the
+   kernels' JSON line, the total wall time, the card line and, last, the
+   result.
 
-Every failed check raises and the script exits non-zero; without a CUDA
+Every launch count is zeroed right before its path runs and read right
+after it. Every failed check raises and the script exits non-zero; without a CUDA
 device, or outside a checkout, it exits non-zero before printing any
 result. Numbers from this script are the only ones quoted for the port.
 """
@@ -60,7 +77,9 @@ def card_line() -> str:
 
 
 def timed_ms(fn, reps: int = 5, warm: int = 1):
-    """Mean device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    """Mean time per call of ``fn`` over ``reps`` back-to-back runs,
+    between CUDA events: the device's time, or the host's launch time
+    where that is the slower (small calls)."""
     import torch
     for _ in range(warm):
         fn()
@@ -75,6 +94,25 @@ def timed_ms(fn, reps: int = 5, warm: int = 1):
     return s.elapsed_time(e) / reps
 
 
+def device_ms(fn, reps: int = 5):
+    """Device time per call of ``fn``: the kernels' time in a traced
+    window of ``reps`` calls (torch.profiler), over ``reps``. Unlike
+    :func:`timed_ms` it leaves out the host's time between launches,
+    which sets the pace of a loop of small calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0) or 0
+             for ev in p.key_averages() if not ev.key.startswith("aten::"))
+    return us / 1e3 / reps
+
+
 def bound(Z, M, N, K, dtype_name, elt):
     """Least time (ms) for Z products (M×K)·(K×N): each operand read and
     the result written once, over the memory rate, against 2·Z·M·N·K
@@ -83,6 +121,53 @@ def bound(Z, M, N, K, dtype_name, elt):
     t_ops = 2.0 * Z * M * N * K / PEAK_FLOPS[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+KERNELS = ("block_gemm", "trsm", "rmsnorm", "flash_attention")
+
+
+def _kernel_modules():
+    import importlib
+    return {n: importlib.import_module(f"repro_torch.kernels.{n}")
+            for n in KERNELS}
+
+
+def zero_counts():
+    """Set every kernel's launch count to 0 (right before a path runs)."""
+    for mod in _kernel_modules().values():
+        mod.launches = 0
+
+
+def read_counts():
+    return {n: mod.launches for n, mod in _kernel_modules().items()}
+
+
+def check_close(kernel, out, ref, name, what, tol, bf16_tol=BF16_TOL):
+    """max|Δ| of a kernel's output against its plain version, and the
+    share of the tolerance it uses; raises past the tolerance (× max|plain|
+    for f64/f32; for bf16 |Δ| ≤ atol + rtol·|plain| element by element, as
+    ``torch.allclose``)."""
+    import torch
+    delta = (out.double() - ref.double()).abs()
+    err = delta.max().item()
+    scale = ref.double().abs().max().item()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{kernel} {what} {name}: non-finite output")
+    if name == "bfloat16":
+        used = bf16_used(delta, ref, bf16_tol)
+    else:
+        used = err / (tol[name] * scale) if scale else float(err > 0)
+    if not used <= 1.0:
+        raise AssertionError(f"{kernel} {what} {name}: max|Δ| {err:.3e} vs "
+                             f"max|plain| {scale:.3e} ({used:.2f}× the "
+                             "tolerance)")
+    return err, used
+
+
+def bf16_used(delta, ref, tol):
+    """The largest share of ``atol + rtol·|ref|`` that ``delta`` uses."""
+    return (delta / (tol["atol"] + tol["rtol"] * ref.double().abs())
+            ).max().item()
 
 
 # ---------------------------------------------------------------------------
@@ -106,16 +191,7 @@ def kernel_checks(dev, main_shapes=MAIN_SHAPES):
               "float64": torch.float64}
 
     def compare(out, ref, name, what):
-        err = (out.double() - ref.double()).abs().max().item()
-        scale = ref.double().abs().max().item()
-        if name == "bfloat16":
-            ok = torch.allclose(out.float(), ref.float(), **BF16_TOL)
-        else:
-            ok = err <= TOL[name] * scale
-        if not ok:
-            raise AssertionError(f"block_gemm {what} {name}: max|Δ| {err:.3e}"
-                                 f" vs max|plain| {scale:.3e}")
-        return err
+        return check_close("block_gemm", out, ref, name, what, TOL)[0]
 
     for m, k, n in [(64, 64, 64), (128, 256, 128), (200, 130, 70),
                     (33, 17, 129)]:
@@ -164,27 +240,214 @@ def kernel_checks(dev, main_shapes=MAIN_SHAPES):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the trsm, RMSNorm and flash-attention kernels against their
+# plain versions, timed beside the bound and one library call
+# ---------------------------------------------------------------------------
+
+# tolerances of the phase: f64 and f32 × max|plain|, bf16 allclose
+TRSM_TOL = {"float64": 1e-12, "float32": 1e-5}
+RMS_TOL = {"float32": 1e-5}
+FLASH_TOL = {"float32": 1e-4}       # sums over up to 4096 keys, rescaled
+# one bf16 step of the output (2^-7 relative) plus 2e-3: typical outputs
+# are 0.02-0.04 at S = 4096, and one KV tile left out fails it (checked)
+FLASH_BF16_TOL = dict(rtol=1e-2, atol=2e-3)
+
+TRSM_SHAPES = [(64, 32), (100, 64), (130, 48), (96, 96), (1440, 96),
+               (4096, 256)]
+# configs/qwen3_32b.py: d_model 5120, head_dim 128 (qk-norm over
+# 64 heads of a 4096-token sequence), n_heads 64
+RMS_SHAPES = [(64, 256), (100, 512), (7, 1024), (4096, 5120),
+              (4096 * 64, 128)]
+FLASH_SHAPES = [((1, 128, 2, 64), ("float32", "bfloat16")),
+                ((2, 256, 4, 64), ("float32", "bfloat16")),
+                ((1, 512, 1, 128), ("float32", "bfloat16")),
+                ((1, 4096, 64, 128), ("bfloat16",)),
+                ((1, 1024, 64, 128), ("float32",))]
+
+
+def _dtypes():
+    import torch
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float64": torch.float64}
+
+
+def _bound(nbytes, nops, dtype_name):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = nops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _row(kernel, shape, name, err, fn, plain, lib, nbytes, nops, **kw):
+    ms = timed_ms(fn)
+    plain_ms = timed_ms(plain)
+    lib_ms = None if lib is None else timed_ms(lib)
+    dev = [None if f is None else device_ms(f) for f in (fn, plain, lib)]
+    bms, by = _bound(nbytes, nops, name)
+    r = dict(kernel=kernel, shape=shape, dtype=name, ms=ms,
+             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+             bound_by=by, max_abs_err=err, device_ms=dev[0],
+             plain_device_ms=dev[1], library_device_ms=dev[2], **kw)
+    lib = ("none" if lib_ms is None else
+           f"{lib_ms:.4f} ms (device {dev[2]:.4f})")
+    extra = "".join(f" {k}={v}" for k, v in kw.items() if k == "causal")
+    log(f"{kernel} {shape}{extra} {name}: {ms:.4f} ms (device {dev[0]:.4f}),"
+        f" plain {plain_ms:.4f} ms (device {dev[1]:.4f}), library {lib}, "
+        f"bound {bms:.4f} ms ({by}), max|Δ| {err:.2e} "
+        f"({kw['tol_used']:.3f} of the tolerance)")
+    return r
+
+
+def trsm_checks(dev, shapes=TRSM_SHAPES):
+    """trsm against its plain version in f32/bf16/f64 (U upper with a
+    diagonal of 2 and off-diagonal N(0, 1/k), well conditioned at every
+    k); yardstick ``torch.linalg.solve_triangular``, which takes no bf16."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import trsm as tk
+
+    rng = np.random.default_rng(1)
+    rows = []
+    for m, k in shapes:
+        u0 = np.triu(rng.standard_normal((k, k))) / np.sqrt(k) + 2 * np.eye(k)
+        b0 = rng.standard_normal((m, k))
+        for name, dt in _dtypes().items():
+            u = torch.from_numpy(u0).to(dev, dt)
+            b = torch.from_numpy(b0).to(dev, dt)
+            out = tk.trsm(b, u)
+            torch.cuda.synchronize()
+            err, used = check_close("trsm", out, tk.trsm_plain(b, u), name,
+                                    f"{m}x{k}", TRSM_TOL)
+            elt = b.element_size()
+            rows.append(_row(
+                "trsm", f"{m}x{k}", name, err, lambda: tk.trsm(b, u),
+                lambda: tk.trsm_plain(b, u),
+                None if name == "bfloat16" else
+                lambda: torch.linalg.solve_triangular(u, b, upper=True,
+                                                      left=False),
+                (2 * m * k + k * k) * elt, m * k * k, m=m, k=k,
+                tol_used=used))
+    return rows
+
+
+def rmsnorm_checks(dev, shapes=RMS_SHAPES):
+    """RMSNorm against its plain version in f32 and bf16; yardstick
+    ``torch.nn.functional.rms_norm``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rk
+
+    rng = np.random.default_rng(2)
+    rows = []
+    for r, d in shapes:
+        x0 = torch.from_numpy(rng.standard_normal((r, d), dtype=np.float32))
+        s0 = torch.from_numpy(rng.standard_normal(d, dtype=np.float32))
+        for name in ("float32", "bfloat16"):
+            dt = _dtypes()[name]
+            x, s = x0.to(dev, dt), s0.to(dev, dt)
+            out = rk.rmsnorm(x, s)
+            torch.cuda.synchronize()
+            err, used = check_close("rmsnorm", out, rk.rmsnorm_plain(x, s),
+                                    name, f"{r}x{d}", RMS_TOL)
+            elt = x.element_size()
+            rows.append(_row(
+                "rmsnorm", f"{r}x{d}", name, err, lambda: rk.rmsnorm(x, s),
+                lambda: rk.rmsnorm_plain(x, s),
+                lambda: F.rms_norm(x, (d,), weight=s, eps=1e-5),
+                2 * r * d * elt + d * elt, 4 * r * d, rows=r, d=d,
+                tol_used=used))
+            del x, s, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flash_checks(dev, shapes=FLASH_SHAPES):
+    """Flash attention against its plain version, causal and not;
+    yardstick ``F.scaled_dot_product_attention`` on (B, H, S, hd) copies
+    made outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for (B, S, H, hd), names in shapes:
+        for name in names:
+            dt = _dtypes()[name]
+            q, k, v = (torch.randn(B, S, H, hd, device=dev, generator=g,
+                                   dtype=torch.float32).to(dt)
+                       for _ in range(3))
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            for causal in (True, False):
+                out = fa.flash_attention(q, k, v, causal)
+                ref = fa.flash_attention_plain(q, k, v, causal)
+                torch.cuda.synchronize()
+                what = f"B={B} S={S} H={H} hd={hd} causal={causal}"
+                err, used = check_close("flash_attention", out, ref, name,
+                                        what, FLASH_TOL, FLASH_BF16_TOL)
+                del ref
+                pairs = S * (S + 1) // 2 if causal else S * S
+                rows.append(_row(
+                    "flash_attention", f"{B}x{S}x{H}x{hd}", name, err,
+                    lambda: fa.flash_attention(q, k, v, causal),
+                    lambda: fa.flash_attention_plain(q, k, v, causal),
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal),
+                    4 * B * S * H * hd * q.element_size(),
+                    4 * B * H * hd * pairs, causal=causal, tol_used=used))
+                torch.cuda.empty_cache()
+            if name == "bfloat16" and S >= 4096:
+                rows[-1]["dropped_tile_tol_used"] = flash_check_power(
+                    fa, q, k, v)
+            del q, k, v, qt, kt, vt
+    return rows
+
+
+def flash_check_power(fa, q, k, v):
+    """Show the bf16 check can fail: the plain version with one KV tile
+    (keys 64-127) left out, held against the whole plain version, must
+    use more than the whole of ``FLASH_BF16_TOL``."""
+    import torch
+    ref = fa.flash_attention_plain(q, k, v, False)
+    kd, vd = (torch.cat([t[:, :64], t[:, 128:]], 1) for t in (k, v))
+    drop = fa.flash_attention_plain(q, kd, vd, False)
+    used = bf16_used((drop.double() - ref.double()).abs(), ref,
+                     FLASH_BF16_TOL)
+    if not used > 1.0:
+        raise AssertionError(f"flash bf16 check passes a dropped KV tile "
+                             f"({used:.2f}× the tolerance)")
+    log(f"flash_attention bf16 check: one KV tile left out uses {used:.1f}×"
+        f" the tolerance (fails, as it must)")
+    return used
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path at full size
 # ---------------------------------------------------------------------------
 
+def selected_keys(bs):
+    """The selected blocks: the diagonal, struct(K) and their transposes,
+    as (row, column) supernode pairs."""
+    keys = []
+    for K in range(bs.nsuper):
+        keys.append((K, K))
+        for I in (int(i) for i in bs.struct[K]):
+            keys += [(I, K), (K, I)]
+    return keys
+
+
 def selected_error(out, eng, A, dev):
     """max|Δ| between the solve and the dense f64 inverse (computed on
-    the card, as a check only) over the selected blocks — the diagonal,
-    struct(K) and their transposes — and max|A⁻¹| over them."""
+    the card, as a check only) over the selected blocks, max|A⁻¹| over
+    them, and both stacks of blocks, in :func:`selected_keys` order."""
     import numpy as np
     import torch
     from repro_torch.core.pselinv_dist import gather_blocks
 
     b, nb0 = eng.b, eng.bs.nsuper
-    rs, cs = [], []
-    for K in range(nb0):
-        rs.append(K)
-        cs.append(K)
-        for I in (int(i) for i in eng.bs.struct[K]):
-            rs += [I, K]
-            cs += [K, I]
-    rs = torch.as_tensor(np.array(rs), device=dev)
-    cs = torch.as_tensor(np.array(cs), device=dev)
+    rs, cs = (torch.as_tensor(np.array(x), device=dev)
+              for x in zip(*selected_keys(eng.bs)))
     dense = torch.as_tensor(A.toarray(), device=dev)
     inv = torch.linalg.inv(dense)
     del dense
@@ -192,14 +455,16 @@ def selected_error(out, eng, A, dev):
     del inv
     got = gather_blocks(out.double(), eng)[rs, cs]
     err = (got - ref).abs().max().item()
-    return err, ref.abs().max().item(), int(rs.numel())
+    return err, ref.abs().max().item(), got, ref
 
 
-def main_path(dev, setting, make, b, grid=(4, 2)):
+def main_path(dev, setting, make, b, grid=(4, 2), keep=False):
+    """The engine's main path on one setting; with ``keep`` the result
+    also holds the matrix and the selected blocks of the solve and of the
+    dense inverse (``res["_blocks"]``) for the serial phase."""
     import torch
     from repro_torch.core import sparse
     from repro_torch.core.engine import Grid, PSelInvEngine
-    from repro_torch.kernels import block_gemm as bg
 
     A = sparse.make_numeric(make()[0], seed=0, symmetric_values=True)
     n = A.shape[0]
@@ -234,10 +499,10 @@ def main_path(dev, setting, make, b, grid=(4, 2)):
 
     # the main path's kernel launches: counts zeroed right before the
     # first solve, read right after it
-    bg.launches = 0
+    zero_counts()
     out = eng.solve(vals, dtype=torch.float64)
     torch.cuda.synchronize()
-    launches = bg.launches
+    launches = read_counts()["block_gemm"]
     if launches != gemm_ops:
         raise AssertionError(f"{setting}: {launches} block_gemm launches, "
                              f"plan has {gemm_ops} gemm ops")
@@ -256,7 +521,8 @@ def main_path(dev, setting, make, b, grid=(4, 2)):
         if not torch.equal(again, out):
             raise AssertionError(f"{setting}: repeated solve differs")
         del again
-    err, scale, nblk = selected_error(out, eng, A, dev)
+    err, scale, got, ref = selected_error(out, eng, A, dev)
+    nblk = got.shape[0]
     if not err <= 1e-10 * scale:
         raise AssertionError(f"{setting}: selected blocks max|Δ| {err:.3e}"
                              f" > 1e-10 · max|A⁻¹| {scale:.3e}")
@@ -285,7 +551,9 @@ def main_path(dev, setting, make, b, grid=(4, 2)):
         f"{nblk} blocks max|Δ| {err:.3e} (max|A⁻¹| {scale:.3e}); repeated "
         f"solves bitwise equal; f32 vs f64 {rel32:.2e} · max|A⁻¹|; peak "
         f"{peak:.1f} GiB")
-    del out, out32, vals, eng
+    if keep:
+        res["_blocks"] = dict(A=A, got=got, ref=ref)
+    del out, out32, vals, eng, got, ref
     PSelInvEngine.clear_cache()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -375,6 +643,203 @@ def batched_path(dev):
     PSelInvEngine.clear_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the serial supernodal path (factorize + selinv) on the card
+# ---------------------------------------------------------------------------
+
+def serial_path(dev, blocks, max_supernode=96):
+    """``factorize`` + ``selinv`` with the ``cuda`` and ``torch`` backends
+    in f64 on the FEM matrix of phase 3, held against the dense inverse
+    (1e-10·max|A⁻¹|) and the engine's f64 solve (1e-12·max|A⁻¹|) on every
+    selected block; the ``cuda`` backend must launch trsm once per block
+    of struct(K) and the block GEMM once per ``gemm``/``matmul`` of the
+    host loop. The numpy backend runs once on the same host as the
+    yardstick, and one traced ``cuda`` run splits its time."""
+    import numpy as np
+    import torch
+    from repro_torch.core.selinv import selinv
+    from repro_torch.core.supernodal_lu import factorize
+    from repro_torch.core.symbolic import symbolic_factorize
+
+    A, eng_blk, ref_blk = blocks["A"], blocks["got"], blocks["ref"]
+    bs = symbolic_factorize(A, max_supernode=max_supernode)
+    keys = selected_keys(bs)
+    if len(keys) != ref_blk.shape[0]:
+        raise AssertionError(f"serial: {len(keys)} selected blocks, the "
+                             f"engine gathered {ref_blk.shape[0]}")
+    sizes = [len(s) for s in bs.struct]
+    want = {"trsm": sum(sizes),
+            # factorize: |struct(K)|² Schur updates; selinv: 2 matmuls and
+            # 1 gemm per supernode with a non-empty struct
+            "block_gemm": sum(c * c for c in sizes)
+                          + 3 * sum(1 for c in sizes if c)}
+    scale = ref_blk.abs().max().item()
+    res = dict(n=A.shape[0], nsuper=bs.nsuper, blocks=len(keys),
+               max_struct=max(sizes), want_launches=want, backends={})
+
+    def run(backend):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lu = factorize(A, bs=bs, backend=backend, device=dev,
+                       dtype=torch.float64)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        Ainv = selinv(lu)
+        torch.cuda.synchronize()
+        return Ainv, t1 - t0, time.perf_counter() - t1
+
+    for backend in ("cuda", "torch"):
+        zero_counts()
+        Ainv, fs, ss = run(backend)
+        counts = read_counts()
+        got = torch.stack([torch.from_numpy(Ainv[k]) for k in keys]).to(dev)
+        e_ref = (got - ref_blk).abs().max().item()
+        e_eng = (got - eng_blk).abs().max().item()
+        if not (e_ref <= 1e-10 * scale and e_eng <= 1e-12 * scale):
+            raise AssertionError(
+                f"serial {backend}: max|Δ| {e_ref:.3e} vs the dense inverse,"
+                f" {e_eng:.3e} vs the engine (max|A⁻¹| {scale:.3e})")
+        expect = want if backend == "cuda" else {"trsm": 0, "block_gemm": 0}
+        if any(counts[n] != c for n, c in expect.items()):
+            raise AssertionError(f"serial {backend}: launches {counts}, "
+                                 f"expected {expect}")
+        res["backends"][backend] = dict(factorize_s=fs, selinv_s=ss,
+                                        err_dense=e_ref, err_engine=e_eng,
+                                        launches=counts)
+        log(f"serial {backend}: factorize {fs:.2f} s + selinv {ss:.2f} s "
+            f"(host clock); {len(keys)} blocks max|Δ| {e_ref:.3e} vs the "
+            f"dense inverse, {e_eng:.3e} vs the engine (max|A⁻¹| "
+            f"{scale:.3e}); launches trsm {counts['trsm']}, block_gemm "
+            f"{counts['block_gemm']}")
+        del Ainv, got
+
+    t0 = time.perf_counter()
+    lu = factorize(A, bs=bs, backend="numpy")
+    t1 = time.perf_counter()
+    selinv(lu)
+    res["numpy"] = dict(factorize_s=t1 - t0,
+                        selinv_s=time.perf_counter() - t1)
+    log(f"serial numpy (host yardstick): factorize "
+        f"{res['numpy']['factorize_s']:.2f} s + selinv "
+        f"{res['numpy']['selinv_s']:.2f} s")
+    res["split"] = serial_split(dev, A, bs, run)
+    return res
+
+
+def serial_split(dev, A, bs, run):
+    """Where the ``cuda`` backend's serial time goes: one traced run's
+    device-busy time by kernel against its wall, beside the host's own
+    parts timed alone — the per-K dense LU of the diagonal blocks and the
+    reads of the blocks out of the CSR matrix."""
+    import scipy.sparse as sp
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import supernodal_lu as slu
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        _, fs, ss = run("cuda")
+    classes = {}
+    for ev in p.key_averages():
+        t = getattr(ev, "self_device_time_total", 0) or 0
+        if t <= 0 or ev.key.startswith("aten::"):
+            continue
+        c = ("block_gemm" if "block_gemm_kernel" in ev.key else
+             "trsm" if "trsm_kernel" in ev.key else
+             "memcpy" if "emcpy" in ev.key else "other")
+        classes[c] = classes.get(c, 0.0) + t / 1e6
+    # the blocks factorize reads out of the CSR matrix (each once: its
+    # working store caches them)
+    need = set()
+    for K in range(bs.nsuper):
+        C = [int(i) for i in bs.struct[K]]
+        need.add((K, K))
+        need.update((I, J) for I in C for J in C)
+        need.update(x for I in C for x in ((I, K), (K, I)))
+    Acsr = sp.csr_matrix(A)
+    t0 = time.perf_counter()
+    diag = {k: slu._get_block(Acsr, bs, *k) for k in need}
+    read_s = time.perf_counter() - t0
+    loaded = len(need)
+    t0 = time.perf_counter()
+    for K in range(bs.nsuper):
+        slu.dense_lu_nopivot(diag[(K, K)])
+    lu_s = time.perf_counter() - t0
+    out = dict(traced_wall_s=fs + ss, device_s=classes,
+               csr_block_reads_s=read_s, csr_block_reads=loaded,
+               diag_lu_s=lu_s)
+    log(f"serial split (cuda, traced): wall {fs + ss:.2f} s, device busy "
+        + ", ".join(f"{c} {t:.3f} s" for c, t in sorted(classes.items()))
+        + f"; host alone: {loaded} CSR block reads {read_s:.2f} s, dense "
+        f"LU of {bs.nsuper} diagonal blocks {lu_s:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the ops entry points, through the port's kernel benchmark
+# ---------------------------------------------------------------------------
+
+# the ops entry points at the widths of configs/qwen3_32b.py, as a
+# (B, S, …) caller passes them: RMSNorm over d_model and over head_dim
+# (qk-norm), causal attention over 64 heads of 128
+OPS_MAIN = dict(rms=[(1, 4096, 5120), (1, 4096, 64, 128)],
+                flash=(1, 4096, 64, 128))
+
+
+def ops_path(dev, main=OPS_MAIN):
+    """``repro_torch.kernels.bench.run`` — the twin of
+    ``benchmarks/kernels_bench.py``, the JAX package's only driver of
+    ``ops.rmsnorm`` and ``ops.flash_attention`` besides the tests — then
+    ``ops.rmsnorm`` and ``ops.flash_attention`` at qwen3-32b's widths in
+    bf16; every output held against its plain version with the kernel
+    phase's tolerances, every count zeroed before and read after."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import bench
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rk
+
+    tols = {"block_gemm": (TOL, BF16_TOL), "trsm": (TRSM_TOL, BF16_TOL),
+            "rmsnorm": (RMS_TOL, BF16_TOL),
+            "flash_attention": (FLASH_TOL, FLASH_BF16_TOL)}
+    held = []
+
+    def check(kernel, out, plain, what="bench"):
+        name = str(out.dtype).replace("torch.", "")
+        err, used = check_close(kernel, out, plain, name, f"ops {what}",
+                                *tols[kernel])
+        held.append(dict(kernel=kernel, what=what, dtype=name,
+                         max_abs_err=err, tol_used=used))
+
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+
+    zero_counts()
+    rows = bench.run(full=True, device=dev, check=check)
+    for shape in main["rms"]:
+        x, sc = randn(*shape), randn(shape[-1])
+        check("rmsnorm", ops.rmsnorm(x, sc), rk.rmsnorm_plain(x, sc),
+              "x".join(map(str, shape)))
+        del x
+    q, k, v = (randn(*main["flash"]) for _ in range(3))
+    check("flash_attention", ops.flash_attention(q, k, v, causal=True),
+          fa.flash_attention_plain(q, k, v, True),
+          "x".join(map(str, main["flash"])) + " causal")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    del q, k, v
+    torch.cuda.empty_cache()
+    if any(c == 0 for c in counts.values()):
+        raise AssertionError(f"ops path: a kernel never launched: {counts}")
+    log(f"ops path (kernels bench + qwen3-32b widths): launches {counts}; "
+        + ", ".join(f"{h['kernel']} {h['what']} {h['dtype']} max|Δ| "
+                    f"{h['max_abs_err']:.2e} ({h['tol_used']:.3f} of the "
+                    "tolerance)" for h in held))
+    return dict(rows=rows, launches=counts, held=held)
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -386,6 +851,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "script runs on an NVIDIA GPU only", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -401,8 +867,9 @@ def main() -> int:
         f"(CUDA {torch.version.cuda}), "
         f"nvcc {nvcc.stdout.strip().splitlines()[-1]}")
     t0 = time.perf_counter()
-    _build.build(["block_gemm"])
-    _build.load("block_gemm")
+    _build.build(KERNELS)            # one nvcc per source, all at once
+    for name in KERNELS:
+        _build.load(name)
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f} s")
     for name, text in _build.build_logs.items():
@@ -411,32 +878,70 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     rows = kernel_checks(dev)
+    new_rows = trsm_checks(dev) + rmsnorm_checks(dev) + flash_checks(dev)
     settings = [
         main_path(dev, "fem3d_like(16,16,16,3)",
-                  lambda: sparse.fem3d_like_matrix(16, 16, 16, 3), 96),
+                  lambda: sparse.fem3d_like_matrix(16, 16, 16, 3), 96,
+                  keep=True),
         main_path(dev, "dg_like(32,32,16)",
                   lambda: sparse.dg_like_matrix(32, 32, 16), 128),
     ]
+    serial = serial_path(dev, settings[0].pop("_blocks"))
     batched_path(dev)
+    ops = ops_path(dev)
 
     head = next(r for r in rows if r["setting"] == "fem"
                 and r["dtype"] == "float64" and r["n"] == 14 * 96)
+    heads = {  # each new kernel's row at the shape its path gives it
+        "trsm": ("96x96", "float64", None),
+        "rmsnorm": ("4096x5120", "bfloat16", None),
+        "flash_attention": ("1x4096x64x128", "bfloat16", True),
+    }
+    launches = {
+        "block_gemm": sum(s_["launches"] for s_ in settings)
+        + serial["backends"]["cuda"]["launches"]["block_gemm"]
+        + ops["launches"]["block_gemm"],
+        "trsm": serial["backends"]["cuda"]["launches"]["trsm"]
+        + ops["launches"]["trsm"],
+        "rmsnorm": ops["launches"]["rmsnorm"],
+        "flash_attention": ops["launches"]["flash_attention"],
+    }
+    replaces = {"block_gemm": "src/repro/kernels/block_gemm.py:43",
+                "trsm": "src/repro/kernels/trsm.py:37",
+                "rmsnorm": "src/repro/kernels/rmsnorm.py:22",
+                "flash_attention": "src/repro/kernels/flash_attention.py:66"}
     kernels = [{
         "name": "block_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_gemm.cu",
-        "replaces": "src/repro/kernels/block_gemm.py:43",
-        "launches": sum(s["launches"] for s in settings),
+        "replaces": replaces["block_gemm"],
+        "launches": launches["block_gemm"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": f"Z={head['Z']} m={head['m']} k={head['k']} "
                  f"n={head['n']} float64",
     }]
+    for name, (shape, dt, causal) in heads.items():
+        r = next(r for r in new_rows if r["kernel"] == name
+                 and r["shape"] == shape and r["dtype"] == dt
+                 and r.get("causal") == causal)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"], "shape": f"{shape} {dt}"
+                     + ("" if causal is None else f" causal={causal}")})
+    wall_s = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "build_s": build_s,
-         "kernel_rows": rows, "main_path": settings, "kernels": kernels},
-        indent=1))
+         "wall_s": wall_s, "kernel_rows": rows, "new_kernel_rows": new_rows,
+         "main_path": settings, "serial": serial, "ops_path": ops,
+         "kernels": kernels}, indent=1, default=str))
+    log(f"total wall {wall_s:.1f} s (host clock, build included)")
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

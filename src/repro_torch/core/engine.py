@@ -37,17 +37,19 @@ import torch
 from ..kernels import block_gemm as _block_gemm
 from ..obs.registry import REGISTRY
 from ..obs.trace import TRACER
+from .device import resolve_device
 from .plan import PlanOptions, peak_arena_blocks, ppermute_round_count
 from .pselinv_dist import (PSelInvProgram, SweepTables, analyze_structure,
                            build_program, make_sweep_overlapped, pad_nb,
                            prepare_values, prepare_values_many,
                            upload_tables, validate_uniform_widths)
 from .schedule import Grid2D
+from .supernodal_lu import LUFactors, get_backend
 from .symbolic import BlockStructure
 
 __all__ = ["Grid", "PlanOptions", "PSelInvEngine", "SolveValues",
            "structure_key", "stack_values", "bucket_size",
-           "values_from_numpy", "resolve_device"]
+           "values_from_numpy", "lu_from_numpy", "resolve_device"]
 
 #: the session API's name for the 2-D process grid
 Grid = Grid2D
@@ -59,22 +61,6 @@ class SolveValues(NamedTuple):
     leading batch axis — as tensors on the session's device."""
     Lh: torch.Tensor
     Dinv: torch.Tensor
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on. ``"cuda"`` (the default of
-    every entry point) raises on a host without a card: nothing falls
-    back to the CPU unless the caller asks for it."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; the port runs on the GPU by "
-            "default — pass device='cpu' to run on the host")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def values_from_numpy(Lh, Dinv, device="cuda",
@@ -89,6 +75,21 @@ def values_from_numpy(Lh, Dinv, device="cuda",
         return t.to(device=dev, dtype=dtype or t.dtype)
 
     return SolveValues(conv(Lh), conv(Dinv))
+
+
+def lu_from_numpy(lu, backend: str = "cuda", device=None,
+                  dtype: torch.dtype | None = None) -> LUFactors:
+    """The JAX package's ``LUFactors`` (numpy blocks, or anything with the
+    same ``bs``/``Ldiag``/``Udiag``/``L``/``U`` fields) as the port's, with
+    every block a backend array — so ``selinv`` of both packages runs on
+    identical factors."""
+    be = get_backend(backend, device, dtype)
+    blocks = {name: {key: be.asarray(np.asarray(val))
+                     for key, val in getattr(lu, name).items()}
+              for name in ("Ldiag", "Udiag", "L", "U")}
+    return LUFactors(bs=lu.bs, backend=backend,
+                     device=getattr(be, "device", None),
+                     dtype=getattr(be, "dtype", None), **blocks)
 
 
 def stack_values(values: Sequence[SolveValues]) -> SolveValues:

@@ -4,18 +4,33 @@ PSelInv consumes an unpivoted supernodal LU (SuperLU_DIST with static
 pivoting). We factorize right-looking at the supernode-block level over
 the filled structure from :mod:`repro_torch.core.symbolic`.
 
-Block math runs through a pluggable backend. This package carries the
-``numpy`` backend only (plain BLAS on the host, the orchestration
-default); device backends built on the port's kernels come later.
+Block math runs through a pluggable backend:
+
+* ``numpy`` — plain BLAS on the host, the orchestration default;
+* ``torch`` — plain torch ops on the backend's device (the counterpart
+  of the JAX package's ``jax`` backend);
+* ``cuda``  — the ``torch`` backend with the port's hand-written kernels
+  (the counterpart of ``pallas``): the Schur GEMMs and the products of
+  selected inversion go through ``kernels.ops.block_gemm[_acc]``, the
+  right-side triangular solve L(I,K) = A(I,K)·U(K,K)⁻¹ through
+  ``kernels.ops.trsm``.
+
+The torch backends carry an explicit device (default ``"cuda"``, which
+raises on a host without a card; ``device="cpu"`` runs on the host, the
+``cuda`` backend then on its kernels' plain versions) and dtype (default
+float64). Every host conversion of a backend array goes through the
+backend's ``to_numpy``: ``np.asarray`` of a CUDA tensor raises.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Callable, Dict, Tuple
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
+from .device import resolve_device
 from .symbolic import BlockStructure, symbolic_factorize
 
 __all__ = ["LUFactors", "factorize", "get_backend", "dense_lu_nopivot"]
@@ -52,17 +67,105 @@ class _NumpyBackend:
     def asarray(x):
         return np.asarray(x, dtype=np.float64)
 
+    @staticmethod
+    def to_numpy(x):
+        return np.asarray(x)
 
-_BACKENDS: Dict[str, Callable[[], object]] = {
+
+class _TorchBackend:
+    """Plain torch ops on one device, in one dtype."""
+    name = "torch"
+
+    def __init__(self, device="cuda", dtype=torch.float64):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+
+    def gemm(self, acc, a, b, alpha=-1.0):
+        if alpha != -1.0:
+            raise ValueError(f"gemm supports only alpha=-1.0 (the "
+                             f"Schur-update sign), got {alpha}")
+        return acc - a @ b
+
+    def matmul(self, a, b):
+        return a @ b
+
+    def solve_tri_right_upper(self, b, u):
+        """X U = B  (U upper)."""
+        return torch.linalg.solve_triangular(u, b, upper=True, left=False)
+
+    def solve_tri_left_unit_lower(self, l, b):
+        """L X = B  (L unit lower)."""
+        return torch.linalg.solve_triangular(l, b, upper=False,
+                                             unitriangular=True)
+
+    def asarray(self, x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            device=self.device, dtype=self.dtype)
+
+    @staticmethod
+    def to_numpy(x):
+        return x.detach().cpu().numpy()
+
+
+class _CudaBackend(_TorchBackend):
+    """The torch backend with the port's hand-written kernels: block GEMM
+    for ``gemm``/``matmul``, trsm for ``solve_tri_right_upper``. The
+    unit-lower left solve has no TPU kernel and stays
+    ``torch.linalg.solve_triangular``."""
+    name = "cuda"
+
+    def __init__(self, device="cuda", dtype=torch.float64):
+        super().__init__(device, dtype)
+        from ..kernels import ops as kops
+        self._kops = kops
+
+    def gemm(self, acc, a, b, alpha=-1.0):
+        if alpha != -1.0:
+            raise ValueError(f"gemm supports only alpha=-1.0 (the "
+                             f"Schur-update sign), got {alpha}")
+        return self._kops.block_gemm_acc(acc, a, b, alpha=-1.0)
+
+    def matmul(self, a, b):
+        return self._kops.block_gemm(a, b)
+
+    def solve_tri_right_upper(self, b, u):
+        return self._kops.trsm(b, u)
+
+    def solve_tri_left_unit_lower(self, l, b):
+        """L X = B  (L unit lower). torch.linalg.solve_triangular may
+        return a column-major X; U(K,J) is made row-major once here, for
+        the kernels that take it in every Schur update."""
+        return super().solve_tri_left_unit_lower(l, b).contiguous()
+
+
+_BACKENDS: Dict[str, Callable[..., object]] = {
     "numpy": _NumpyBackend,
+    "torch": _TorchBackend,
+    "cuda": _CudaBackend,
 }
-_CACHE: Dict[str, object] = {}
+_CACHE: Dict[tuple, object] = {}
 
 
-def get_backend(name: str):
-    if name not in _CACHE:
-        _CACHE[name] = _BACKENDS[name]()
-    return _CACHE[name]
+def get_backend(name: str, device=None, dtype: Optional[torch.dtype] = None):
+    """The backend ``name``, cached per (name, device, dtype). The torch
+    backends default to ``device="cuda"`` and float64; the numpy backend
+    takes neither."""
+    if name not in _BACKENDS:
+        raise ValueError(f"unknown backend {name!r}; have "
+                         f"{sorted(_BACKENDS)}")
+    if name == "numpy":
+        if device not in (None, "cpu") or dtype not in (None, torch.float64):
+            raise ValueError("the numpy backend runs on the host in float64")
+        key = (name, None, None)
+        if key not in _CACHE:
+            _CACHE[key] = _NumpyBackend()
+        return _CACHE[key]
+    dev = resolve_device("cuda" if device is None else device)
+    dt = torch.float64 if dtype is None else dtype
+    key = (name, dev, dt)
+    if key not in _CACHE:
+        _CACHE[key] = _BACKENDS[name](dev, dt)
+    return _CACHE[key]
 
 
 # -- dense unpivoted LU -------------------------------------------------------
@@ -92,6 +195,8 @@ class LUFactors:
     L: Dict[Key, np.ndarray]          # off-diag L(I,K), I > K
     U: Dict[Key, np.ndarray]          # off-diag U(K,J), J > K
     backend: str = "numpy"
+    device: Optional[torch.device] = None   # torch backends: where blocks live
+    dtype: Optional[torch.dtype] = None
 
     def nnz_blocks(self) -> int:
         return len(self.L) + len(self.U) + len(self.Ldiag) * 2
@@ -104,12 +209,15 @@ def _get_block(A: sp.csr_matrix, bs: BlockStructure, I: int, J: int) -> np.ndarr
 
 
 def factorize(A: sp.spmatrix, bs: BlockStructure | None = None,
-              max_supernode: int = 32, backend: str = "numpy") -> LUFactors:
-    """Right-looking supernodal LU over the filled block structure."""
+              max_supernode: int = 32, backend: str = "numpy",
+              device=None, dtype: Optional[torch.dtype] = None) -> LUFactors:
+    """Right-looking supernodal LU over the filled block structure. The
+    diagonal blocks are factored on the host (``dense_lu_nopivot``), the
+    panel solves and Schur updates run on the backend."""
     A = sp.csr_matrix(A)
     if bs is None:
         bs = symbolic_factorize(A, max_supernode=max_supernode)
-    be = get_backend(backend)
+    be = get_backend(backend, device, dtype)
     nb = bs.nsuper
 
     # working Schur storage, lazily initialized from A
@@ -127,7 +235,7 @@ def factorize(A: sp.spmatrix, bs: BlockStructure | None = None,
     U: Dict[Key, np.ndarray] = {}
 
     for K in range(nb):
-        lkk, ukk = dense_lu_nopivot(np.asarray(load(K, K)))
+        lkk, ukk = dense_lu_nopivot(be.to_numpy(load(K, K)))
         Ldiag[K] = be.asarray(lkk)
         Udiag[K] = be.asarray(ukk)
         C = bs.struct[K]
@@ -144,4 +252,5 @@ def factorize(A: sp.spmatrix, bs: BlockStructure | None = None,
                 work[(I, J)] = be.gemm(load(I, J), lik, U[(K, int(J))])
 
     return LUFactors(bs=bs, Ldiag=Ldiag, Udiag=Udiag, L=L, U=U,
-                     backend=backend)
+                     backend=backend, device=getattr(be, "device", None),
+                     dtype=getattr(be, "dtype", None))

@@ -1,19 +1,23 @@
-"""Public kernel entry points — the names of ``repro/kernels/ops.py`` that
-this slice ports, on top of the hand-written block GEMM.
+"""Public kernel entry points — the names of ``repro/kernels/ops.py``, on
+top of the hand-written Hopper kernels (``block_gemm``, ``trsm``,
+``rmsnorm``, ``flash_attention``).
 
 Every op takes leading batch dims. A CPU tensor runs the kernel's plain
-PyTorch version, a CUDA tensor the kernel (see ``block_gemm``); the JAX
-package's interpret-mode switch has no counterpart, because the tensor's
-device decides."""
+PyTorch version, a CUDA tensor the kernel; the JAX package's
+interpret-mode switch has no counterpart, because the tensor's device
+decides."""
 from __future__ import annotations
 
 import torch
 
 from .block_gemm import block_gemm as _block_gemm
 from .block_gemm import blocked_gemm
+from .flash_attention import flash_attention as _flash_attention
+from .rmsnorm import rmsnorm as _rmsnorm
+from .trsm import trsm as _trsm
 
-__all__ = ["block_gemm", "block_gemm_acc", "pselinv_level_gemm",
-           "pselinv_round_gemm"]
+__all__ = ["block_gemm", "block_gemm_acc", "flash_attention", "rmsnorm",
+           "trsm", "pselinv_level_gemm", "pselinv_round_gemm"]
 
 
 def block_gemm(a, b):
@@ -63,3 +67,17 @@ def pselinv_round_gemm(Ainv, Uh, cmask, out=None):
     else:
         Uh_m = Uh * cmask[..., None, None].to(Uh.dtype)
     return pselinv_level_gemm(Ainv, Uh_m, out=out)
+
+
+def flash_attention(q, k, v, causal=True):
+    """Softmax attention over (B, S, H, hd) tensors, same H for q, k, v."""
+    return _flash_attention(q, k, v, causal=causal)
+
+
+def rmsnorm(x, scale, eps=1e-5):
+    return _rmsnorm(x, scale, eps=eps)
+
+
+def trsm(b, u):
+    """Solve X·U = B with U upper triangular (right side)."""
+    return _trsm(b, u)
