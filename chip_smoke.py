@@ -8,7 +8,11 @@ the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 on the card:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
-   nvcc versions and the kernel build time;
+   nvcc versions and the kernel build time; counts the tensor-core
+   instructions in each built library (``cuobjdump -sass``: DMMA in every
+   f64 block-GEMM instance, HMMA in every bf16 block-GEMM and flash
+   instance, or it fails) and prints ptxas's registers, shared memory and
+   spills per template instance;
 2. holds each kernel against its plain PyTorch version and times it
    beside the card's bound, the plain version and one library call used
    only as a yardstick: the block GEMM in f32, bf16 and f64 on the shapes
@@ -22,8 +26,9 @@ on the card:
    ``solve`` on grid 4×2 — on the FEM-like (audikw_1 stand-in) and
    DG-like (DG_PNF14000 stand-in) matrices at full size, and checks the
    selected blocks against a dense f64 inverse computed on the card,
-   bitwise-equal repeated solves, one kernel launch per planned GEMM op
-   and the f32 solve against the f64 one;
+   bitwise-equal repeated solves, one kernel launch per planned GEMM op,
+   every f64 launch on the DMMA variant, and the f32 solve against the
+   f64 one;
 4. runs the serial path — ``factorize`` + ``selinv`` with the ``cuda`` and
    ``torch`` backends in f64 — on the FEM matrix, against the dense
    inverse and the engine's solve, with one trsm launch per block of
@@ -33,7 +38,7 @@ on the card:
 6. drives the ``ops`` entry points through the port's kernel benchmark
    (``repro_torch.kernels.bench``) and, for RMSNorm and flash attention,
    at qwen3-32b's widths in bf16, every output held against its plain
-   version and every kernel launched;
+   version, every kernel launched and bf16 flash on the tensor cores;
 7. writes every measured row to ``build/chip_smoke.json`` and prints the
    kernels' JSON line, the total wall time, the card line and, last, the
    result.
@@ -46,6 +51,7 @@ result. Numbers from this script are the only ones quoted for the port.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -133,9 +139,12 @@ def _kernel_modules():
 
 
 def zero_counts():
-    """Set every kernel's launch count to 0 (right before a path runs)."""
+    """Set every kernel's launch count to 0 (right before a path runs),
+    and the per-variant counts where a wrapper keeps them."""
     for mod in _kernel_modules().values():
         mod.launches = 0
+        if hasattr(mod, "plans"):
+            mod.plans.clear()
 
 
 def read_counts():
@@ -168,6 +177,140 @@ def bf16_used(delta, ref, tol):
     """The largest share of ``atol + rtol·|ref|`` that ``delta`` uses."""
     return (delta / (tol["atol"] + tol["rtol"] * ref.double().abs())
             ).max().item()
+
+
+# ---------------------------------------------------------------------------
+# phase 1b: what the compiler made of the kernels — tensor-core instructions
+# in the SASS of each built library, and ptxas's registers, shared memory
+# and spills for each template instance
+# ---------------------------------------------------------------------------
+
+SASS_OPS = ("DMMA", "HMMA", "LDGSTS", "LDSM")
+# the instruction each redesigned library must hold, and the instances
+# (by name prefix) that must hold it
+SASS_REQUIRED = {
+    "block_gemm": [("block_gemm_kernel<double", "DMMA"),
+                   ("block_gemm_kernel<__nv_bfloat16", "HMMA")],
+    "flash_attention": [("flash_hmma_kernel<", "HMMA")],
+}
+CTYPE = {"float64": "double", "bfloat16": "__nv_bfloat16",
+         "float32": "float"}
+
+
+def cuda_tool(name):
+    """A CUDA toolkit program beside nvcc; raises when it is missing."""
+    from repro_torch.kernels import _build
+    path = Path(_build.nvcc_path()).parent / name
+    if not path.is_file():
+        raise RuntimeError(f"{name} not found beside nvcc ({path}): the "
+                           "tensor-core check cannot run")
+    return str(path)
+
+
+_MANGLED_ARG = re.compile(r"d|f|13__nv_bfloat16|Li(\d+)E|Lb([01])E")
+_MANGLED_TYPE = {"d": "double", "f": "float",
+                 "13__nv_bfloat16": "__nv_bfloat16"}
+
+
+def instance_name(mangled):
+    """The template instance a kernel symbol names, read off its Itanium
+    mangling (e.g. ``...17block_gemm_kernelIdLi96EE...`` →
+    ``block_gemm_kernel<double, 96>``); the symbol itself if it is not one
+    of the port's kernel templates."""
+    m = re.search(r"\d+(block_gemm_kernel|flash_hmma_kernel|flash_kernel|"
+                  r"trsm_kernel|rmsnorm_kernel)I", mangled)
+    if not m:
+        return mangled
+    args, pos = [], m.end()
+    while pos < len(mangled) and mangled[pos] != "E":
+        a = _MANGLED_ARG.match(mangled, pos)
+        if not a:
+            return mangled
+        args.append(a.group(1) or {"0": "false", "1": "true"}.get(
+            a.group(2)) or _MANGLED_TYPE[a.group(0)])
+        pos = a.end()
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def sass_counts(lib):
+    """Count SASS_OPS per kernel in ``cuobjdump -sass`` of one library."""
+    r = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(lib)],
+                       capture_output=True, text=True, check=True,
+                       timeout=120)
+    counts, cur = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                      line)
+        if cur is not None and m and m.group(1) in counts[cur]:
+            counts[cur][m.group(1)] += 1
+    return {instance_name(k): v for k, v in counts.items()}
+
+
+def ptxas_report(log):
+    """Registers, static shared memory, stack and spills per kernel, from
+    ``nvcc -Xptxas -v``'s output."""
+    rep, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            rep[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rep[cur].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            rep[cur].update(registers=int(m.group(1)),
+                            static_smem=int(sm.group(1)) if sm else 0)
+    return {instance_name(k): v for k, v in rep.items()}
+
+
+def compiled_checks(libs, logs):
+    """The tensor-core check and the ptxas report of every instance: the
+    block-GEMM library must hold DMMA in each f64 instance and HMMA in each
+    bf16 one, the flash library HMMA in each tensor-core instance."""
+    sass = {n: sass_counts(libs[n]) for n in SASS_REQUIRED}
+    for lib, reqs in SASS_REQUIRED.items():
+        for prefix, op in reqs:
+            hits = {k: v[op] for k, v in sass[lib].items()
+                    if k.startswith(prefix)}
+            if not hits or not all(hits.values()):
+                raise AssertionError(f"{lib}: no {op} in {prefix}* "
+                                     f"instances: {hits} (SASS of {lib}: "
+                                     f"{sass[lib]})")
+    ptxas = {n: ptxas_report(t) for n, t in logs.items()}
+    for lib in SASS_REQUIRED:
+        for k, v in sass[lib].items():
+            p = ptxas.get(lib, {}).get(k, {})
+            log(f"  {lib} {k}: SASS " + ", ".join(
+                f"{op} {c}" for op, c in v.items() if c)
+                + f"; ptxas {p.get('registers')} registers, "
+                f"{p.get('static_smem')} B static smem, spills "
+                f"{p.get('spill_stores')}/{p.get('spill_loads')} B")
+    return sass, ptxas
+
+
+def gemm_symbol(dtype_name, p):
+    return f"block_gemm_kernel<{CTYPE[dtype_name]}, {p.bn}>"
+
+
+def flash_symbol(p, hd):
+    if p.variant == "fma_f32":
+        return f"flash_kernel<float, {hd}>"
+    return (f"flash_hmma_kernel<{hd}, "
+            f"{'true' if p.variant == 'hmma_cpasync' else 'false'}>")
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +362,9 @@ def kernel_checks(dev, main_shapes=MAIN_SHAPES):
             ref = bg.blocked_gemm_plain(A, U)
             torch.cuda.synchronize()
             err = compare(out, ref, name, f"{setting} Z={Z} {M}x{K}x{N}")
+            p = bg.plan(M, N, K, dt, bg.blocked_desc(A.stride(), U.stride(),
+                                                     out.stride(), b),
+                        (A.data_ptr(), U.data_ptr()))
             a2 = A.permute(0, 1, 3, 2, 4).reshape(Z, M, K).contiguous()
             b2 = U.permute(0, 2, 4, 1, 3).reshape(Z, K, N).contiguous()
             ms = timed_ms(lambda: bg.blocked_gemm(A, U, out=out))
@@ -229,8 +375,14 @@ def kernel_checks(dev, main_shapes=MAIN_SHAPES):
                              n=N, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bms, bound_by=by,
                              max_abs_err=err,
-                             tflops=2.0 * Z * M * N * K / ms / 1e9))
-            log(f"kernel {setting} {name} Z={Z} m={M} k={K} n={N}: "
+                             tflops=2.0 * Z * M * N * K / ms / 1e9,
+                             variant=p.variant,
+                             tile=f"{p.bm}x{p.bn}x{p.bk}",
+                             staging="cp.async" if p.a_async and p.b_async
+                             else f"a_async={p.a_async} b_async={p.b_async}",
+                             symbol=gemm_symbol(name, p)))
+            log(f"kernel {setting} {name} Z={Z} m={M} k={K} n={N} "
+                f"[{p.variant} {p.bm}x{p.bn}x{p.bk}, {rows[-1]['staging']}]: "
                 f"{ms:.3f} ms ({rows[-1]['tflops']:.1f} TFLOP/s), plain "
                 f"{plain_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound "
                 f"{bms:.3f} ms ({by}), max|Δ| {err:.2e}")
@@ -290,7 +442,8 @@ def _row(kernel, shape, name, err, fn, plain, lib, nbytes, nops, **kw):
              plain_device_ms=dev[1], library_device_ms=dev[2], **kw)
     lib = ("none" if lib_ms is None else
            f"{lib_ms:.4f} ms (device {dev[2]:.4f})")
-    extra = "".join(f" {k}={v}" for k, v in kw.items() if k == "causal")
+    extra = "".join(f" {k}={v}" for k, v in kw.items()
+                    if k in ("causal", "variant"))
     log(f"{kernel} {shape}{extra} {name}: {ms:.4f} ms (device {dev[0]:.4f}),"
         f" plain {plain_ms:.4f} ms (device {dev[1]:.4f}), library {lib}, "
         f"bound {bms:.4f} ms ({by}), max|Δ| {err:.2e} "
@@ -388,6 +541,9 @@ def flash_checks(dev, shapes=FLASH_SHAPES):
                                         what, FLASH_TOL, FLASH_BF16_TOL)
                 del ref
                 pairs = S * (S + 1) // 2 if causal else S * S
+                p = fa.plan(B, S, H, hd, dt, causal,
+                            [t.stride()[:3] for t in (q, k, v)],
+                            [t.data_ptr() for t in (q, k, v)])
                 rows.append(_row(
                     "flash_attention", f"{B}x{S}x{H}x{hd}", name, err,
                     lambda: fa.flash_attention(q, k, v, causal),
@@ -395,7 +551,9 @@ def flash_checks(dev, shapes=FLASH_SHAPES):
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal),
                     4 * B * S * H * hd * q.element_size(),
-                    4 * B * H * hd * pairs, causal=causal, tol_used=used))
+                    4 * B * H * hd * pairs, causal=causal, tol_used=used,
+                    variant=p.variant, tile=f"{p.bq}x{p.bk}",
+                    symbol=flash_symbol(p, hd)))
                 torch.cuda.empty_cache()
             if name == "bfloat16" and S >= 4096:
                 rows[-1]["dropped_tile_tol_used"] = flash_check_power(
@@ -506,6 +664,11 @@ def main_path(dev, setting, make, b, grid=(4, 2), keep=False):
     if launches != gemm_ops:
         raise AssertionError(f"{setting}: {launches} block_gemm launches, "
                              f"plan has {gemm_ops} gemm ops")
+    from repro_torch.kernels import block_gemm as bg
+    variants = {" ".join(map(str, k)): c for k, c in bg.plans.items()}
+    if any(k[0] != "dmma_f64" for k in bg.plans):
+        raise AssertionError(f"{setting}: the f64 solve ran {variants}, "
+                             "not only the DMMA variant")
     if not torch.isfinite(out).all():
         raise AssertionError(f"{setting}: non-finite values in A⁻¹")
 
@@ -537,7 +700,7 @@ def main_path(dev, setting, make, b, grid=(4, 2), keep=False):
     peak = torch.cuda.max_memory_allocated() / 2**30
     res = dict(setting=setting, n=n, b=b, nb=eng.nb,
                levels=len(ov.levels), rounds=len(ov.rounds),
-               gemm_ops=gemm_ops, launches=launches,
+               gemm_ops=gemm_ops, launches=launches, variants=variants,
                analyze_s_median=statistics.median(analyze_s),
                prepare_s_median=statistics.median(prepare_s),
                analyze_s=analyze_s, prepare_s=prepare_s, profile=prof,
@@ -547,7 +710,8 @@ def main_path(dev, setting, make, b, grid=(4, 2), keep=False):
                peak_gib=peak)
     log(f"{setting}: solve f64 {res['solve_ms_f64_median']:.1f} ms (median "
         f"of {[round(x, 1) for x in solve_ms]}, CUDA events, warm); "
-        f"{launches} block_gemm launches = {gemm_ops} gemm ops; selected "
+        f"{launches} block_gemm launches = {gemm_ops} gemm ops "
+        f"(variant, BN, A cp.async, B cp.async: {variants}); selected "
         f"{nblk} blocks max|Δ| {err:.3e} (max|A⁻¹| {scale:.3e}); repeated "
         f"solves bitwise equal; f32 vs f64 {rel32:.2e} · max|A⁻¹|; peak "
         f"{peak:.1f} GiB")
@@ -796,6 +960,7 @@ def ops_path(dev, main=OPS_MAIN):
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import bench
+    from repro_torch.kernels import block_gemm as bg
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rk
 
@@ -829,15 +994,22 @@ def ops_path(dev, main=OPS_MAIN):
           "x".join(map(str, main["flash"])) + " causal")
     torch.cuda.synchronize()
     counts = read_counts()
+    variants = {"flash_attention": dict(fa.plans),
+                "block_gemm": {" ".join(map(str, k)): c
+                               for k, c in bg.plans.items()}}
     del q, k, v
     torch.cuda.empty_cache()
     if any(c == 0 for c in counts.values()):
         raise AssertionError(f"ops path: a kernel never launched: {counts}")
+    if not fa.plans["hmma_cpasync"]:
+        raise AssertionError(f"ops path: bf16 flash attention never ran on "
+                             f"the tensor cores: {variants}")
     log(f"ops path (kernels bench + qwen3-32b widths): launches {counts}; "
+        f"variants {variants}; "
         + ", ".join(f"{h['kernel']} {h['what']} {h['dtype']} max|Δ| "
                     f"{h['max_abs_err']:.2e} ({h['tol_used']:.3f} of the "
                     "tolerance)" for h in held))
-    return dict(rows=rows, launches=counts, held=held)
+    return dict(rows=rows, launches=counts, variants=variants, held=held)
 
 
 def main() -> int:
@@ -867,15 +1039,16 @@ def main() -> int:
         f"(CUDA {torch.version.cuda}), "
         f"nvcc {nvcc.stdout.strip().splitlines()[-1]}")
     t0 = time.perf_counter()
-    _build.build(KERNELS)            # one nvcc per source, all at once
+    libs = _build.build(KERNELS)     # one nvcc per source, all at once
     for name in KERNELS:
         _build.load(name)
     build_s = time.perf_counter() - t0
-    log(f"kernels built in {build_s:.1f} s")
-    for name, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    log(f"kernels built in {build_s:.1f} s; SASS and ptxas per instance:")
+    sass, ptxas = compiled_checks(libs, _build.build_logs)
+    for name in ("trsm", "rmsnorm"):
+        for k, v in ptxas.get(name, {}).items():
+            log(f"  {name} {k}: ptxas {v.get('registers')} registers, "
+                f"spills {v.get('spill_stores')}/{v.get('spill_loads')} B")
 
     rows = kernel_checks(dev)
     new_rows = trsm_checks(dev) + rmsnorm_checks(dev) + flash_checks(dev)
@@ -889,6 +1062,11 @@ def main() -> int:
     serial = serial_path(dev, settings[0].pop("_blocks"))
     batched_path(dev)
     ops = ops_path(dev)
+    for r in rows + new_rows:    # ptxas's report of the instance each ran
+        if "symbol" in r:
+            lib = "block_gemm" if "block_gemm" in r["symbol"] else \
+                "flash_attention"
+            r["ptxas"] = ptxas.get(lib, {}).get(r["symbol"])
 
     head = next(r for r in rows if r["setting"] == "fem"
                 and r["dtype"] == "float64" and r["n"] == 14 * 96)
@@ -897,6 +1075,12 @@ def main() -> int:
         "rmsnorm": ("4096x5120", "bfloat16", None),
         "flash_attention": ("1x4096x64x128", "bfloat16", True),
     }
+    # the variant of the two kernels without a plan: trsm (a warp per 4
+    # rows, 32-column panels) and RMSNorm (a block per row above d = 1024)
+    fixed = {"trsm": ("fma_panel32", "4 rows x 32 columns per warp",
+                      "trsm_kernel<double, double>"),
+             "rmsnorm": ("block_per_row", "1 row per block",
+                         "rmsnorm_kernel<__nv_bfloat16, 8, false>")}
     launches = {
         "block_gemm": sum(s_["launches"] for s_ in settings)
         + serial["backends"]["cuda"]["launches"]["block_gemm"]
@@ -920,6 +1104,8 @@ def main() -> int:
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": f"Z={head['Z']} m={head['m']} k={head['k']} "
                  f"n={head['n']} float64",
+        "variant": head["variant"], "tile": head["tile"],
+        "ptxas": head.get("ptxas"),
     }]
     for name, (shape, dt, causal) in heads.items():
         r = next(r for r in new_rows if r["kernel"] == name
@@ -933,14 +1119,19 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"], "shape": f"{shape} {dt}"
-                     + ("" if causal is None else f" causal={causal}")})
+                     + ("" if causal is None else f" causal={causal}"),
+            "variant": r.get("variant", fixed.get(name, ("",))[0]),
+            "tile": r.get("tile", fixed.get(name, ("", ""))[1]),
+            "ptxas": r.get("ptxas") or ptxas.get(name, {}).get(
+                fixed.get(name, ("", "", ""))[2])})
     wall_s = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "build_s": build_s,
          "wall_s": wall_s, "kernel_rows": rows, "new_kernel_rows": new_rows,
          "main_path": settings, "serial": serial, "ops_path": ops,
-         "kernels": kernels}, indent=1, default=str))
+         "sass": sass, "ptxas": ptxas, "kernels": kernels}, indent=1,
+        default=str))
     log(f"total wall {wall_s:.1f} s (host clock, build included)")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

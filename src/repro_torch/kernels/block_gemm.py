@@ -17,21 +17,32 @@ A CPU tensor goes to the plain PyTorch version beside each entry point
 (:func:`block_gemm_plain`, :func:`blocked_gemm_plain`): the same
 function, accumulated in the accumulate type. A CUDA tensor launches the
 kernel or raises; nothing falls back. ``launches`` counts kernel
-launches, and only those."""
+launches, and only those.
+
+:func:`plan` — pure Python, no card needed — chooses the kernel's
+variant, tile and staging for each launch; the C entry takes its choice
+as it is."""
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
+from typing import Sequence
 
 import torch
 
 from . import _build
 
 __all__ = ["block_gemm", "blocked_gemm", "block_gemm_plain",
-           "blocked_gemm_plain", "acc_dtype", "launches", "SUPPORTED"]
+           "blocked_gemm_plain", "acc_dtype", "launches", "SUPPORTED",
+           "plans", "GemmPlan", "plan", "rowmajor_desc", "blocked_desc"]
 
 #: kernel launches since import (or since a caller last reset it)
 launches = 0
+#: the same launches by (variant, bn, a_async, b_async) of their plan
+plans: collections.Counter = collections.Counter()
 
 #: dtype → the kernel's type code (f32 / bf16 / f64)
 SUPPORTED = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
@@ -44,11 +55,123 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+# ---- the launch plan ---------------------------------------------------------
+
+#: per type: (variant, BM, BK, stages, threads for a BN) — the compiled
+#: instances of ``csrc/block_gemm.cu`` (its head note says why each)
+_TILES = {
+    torch.float64: ("dmma_f64", 64, 32, 2, lambda bn: 128),
+    torch.bfloat16: ("hmma_bf16", 64, 32, 3, lambda bn: 128),
+    torch.float32: ("fma_f32", 128, 16, 3, lambda bn: 2 * bn),
+}
+#: the compiled N tiles; a level product takes BN = b where b is one
+BNS = (64, 96, 128)
+_ELT = {torch.float64: 8, torch.float32: 4, torch.bfloat16: 2}
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """One launch's kernel choice: variant (instruction route), the block
+    tile ``bm × bn`` with ``bk``-deep K slabs in a ring of ``stages``,
+    ``threads`` per block, ``smem`` bytes of dynamic shared memory, and
+    whether each operand is staged by ``cp.async`` (else by guarded element
+    loads)."""
+    variant: str
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    threads: int
+    smem: int
+    a_async: bool
+    b_async: bool
+
+    def grid(self, M: int, N: int, Z: int) -> tuple:
+        """Blocks along (N, M, Z), as the kernel's grid."""
+        return (-(-N // self.bn), -(-M // self.bm), Z)
+
+    def tiles(self, M: int, N: int):
+        """The (m0, n0) corner of every output tile one z's blocks own."""
+        gx, gy, _ = self.grid(M, N, 1)
+        return [(y * self.bm, x * self.bn) for y in range(gy)
+                for x in range(gx)]
+
+
+def rowmajor_desc(m: int, k: int, n: int) -> tuple:
+    """The 21-value descriptor of contiguous row-major (…, m, k) @
+    (…, k, n) → (…, m, n) stacks: (sz, rblk, ro, ri, cblk, co, ci) per
+    operand, in elements."""
+    return (m * k, m, 0, k, k, 0, 1,
+            k * n, k, 0, n, n, 0, 1,
+            m * n, m, 0, n, n, 0, 1)
+
+
+def blocked_desc(sa: Sequence[int], sb: Sequence[int], so: Sequence[int],
+                 b: int) -> tuple:
+    """The descriptor of the level product from the strides of ``ainv``
+    (Z, nbr, nbc, b, b), ``uh`` (Z, nk, nbc, b, b) and ``out`` (Z, nk,
+    nbr, b, b): A⁻¹ as (nbr·b) × (nbc·b), Û transposed per block as
+    (nbc·b) × (nk·b), the partials as (nbr·b) × (nk·b)."""
+    return (sa[0], b, sa[1], sa[3], b, sa[2], sa[4],    # A: (i,a) x (j,c)
+            sb[0], b, sb[2], sb[4], b, sb[1], sb[3],    # B: (j,x) x (k,y)
+            so[0], b, so[2], so[3], b, so[1], so[4])    # C: (i,a) x (k,y)
+
+
+def plan(M: int, N: int, K: int, dtype: torch.dtype, desc: Sequence[int],
+         addrs: Sequence[int] = (0, 0)) -> GemmPlan:
+    """The kernel choice for one launch of ``M × N × K`` per z, from the
+    operands' descriptor and their base addresses (``addrs``: A, B). It
+    never looks at Z, so every batch size runs the same tile in the same
+    K order.
+
+    BN follows the blocks of B's columns — b on the level product (96 or
+    128), so a narrow level reads its A⁻¹ panel once — else N's largest
+    divisor in :data:`BNS`, else 64. An operand is staged by ``cp.async``
+    only when it is K-contiguous (A: ci = 1; B: ri = 1), its K blocks and
+    K are multiples of BK (so a slab never straddles a block) and its base
+    and every stride are 16-byte aligned; otherwise by guarded element
+    loads."""
+    if dtype not in _TILES:
+        raise TypeError(f"block_gemm takes {sorted(map(str, SUPPORTED))}, "
+                        f"got {dtype}")
+    return _plan(M, N, K, dtype, tuple(int(x) for x in desc[:14]),
+                 addrs[0] % 16, addrs[1] % 16)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(M, N, K, dtype, desc, a_mis, b_mis) -> GemmPlan:
+    # cached: the serial path asks for the same few plans thousands of times
+    variant, bm, bk, stages, threads = _TILES[dtype]
+    elt = _ELT[dtype]
+    vec = 16 // elt
+    a, bd = desc[0:7], desc[7:14]
+    cblk_b = bd[4]
+    if cblk_b in BNS[1:]:
+        bn = cblk_b
+    else:
+        bn = next((c for c in BNS[::-1] if N % c == 0), BNS[0])
+
+    def ok(mis, strides):
+        return mis == 0 and all(x % vec == 0 for x in strides)
+
+    a_async = (a[6] == 1 and a[4] % bk == 0 and K % bk == 0
+               and ok(a_mis, (a[0], a[2], a[3], a[5])))
+    b_async = (bd[3] == 1 and bd[1] % bk == 0 and K % bk == 0
+               and ok(b_mis, (bd[0], bd[2], bd[5], bd[6])))
+    ld = {"dmma_f64": bk, "hmma_bf16": bk + 8, "fma_f32": bk + 4}[variant]
+    # the stages, then one int64 offset per tile row of A and column of B
+    smem = stages * (bm + bn) * ld * elt + 8 * (bm + bn)
+    return GemmPlan(variant, bm, bn, bk, stages, threads(bn), smem, a_async,
+                    b_async)
+
+
 def _kernel():
     global _fn
     if _fn is None:
         f = _build.load("block_gemm").block_gemm_launch
-        f.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_double,
                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
@@ -74,21 +197,26 @@ def _check(*ts: torch.Tensor) -> str:
 
 
 def _launch(a, b, c, M, N, K, Z, alpha, desc) -> None:
-    """One kernel launch on the current stream; raises on a refused
-    launch (the C side returns ``cudaGetLastError()``)."""
+    """One kernel launch on the current stream, as :func:`plan` chooses
+    it; raises on a refused launch (the C side returns
+    ``cudaGetLastError()``)."""
     global launches
     if Z > 65535:
         raise ValueError(f"batch {Z} exceeds the grid's z limit 65535")
+    p = plan(M, N, K, a.dtype, desc, (a.data_ptr(), b.data_ptr()))
     arr = (ctypes.c_longlong * 21)(*[int(v) for v in desc])
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
-        err = _kernel()(SUPPORTED[a.dtype], a.data_ptr(), b.data_ptr(),
-                        c.data_ptr(), M, N, K, Z, float(alpha), arr, stream)
+        err = _kernel()(SUPPORTED[a.dtype], p.bm, p.bn, p.bk,
+                        int(p.a_async), int(p.b_async), a.data_ptr(),
+                        b.data_ptr(), c.data_ptr(), M, N, K, Z,
+                        float(alpha), arr, stream)
     if err != 0:
         raise RuntimeError(f"block_gemm kernel launch failed: CUDA error "
                            f"{err} (M={M}, N={N}, K={K}, Z={Z}, "
-                           f"{a.dtype})")
+                           f"{a.dtype}, {p})")
     launches += 1
+    plans[(p.variant, p.bn, p.a_async, p.b_async)] += 1
 
 
 # ---- row-major stacks ------------------------------------------------------
@@ -119,10 +247,7 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor,
     Z = math.prod(lead)
     c = torch.empty(lead + (m, n), dtype=a.dtype, device=a.device)
     if Z and m and n:
-        desc = (m * k, m, 0, k, k, 0, 1,
-                k * n, k, 0, n, n, 0, 1,
-                m * n, m, 0, n, n, 0, 1)
-        _launch(a, b, c, m, n, k, Z, alpha, desc)
+        _launch(a, b, c, m, n, k, Z, alpha, rowmajor_desc(m, k, n))
     return c
 
 
@@ -178,9 +303,6 @@ def blocked_gemm(ainv: torch.Tensor, uh: torch.Tensor,
             raise ValueError(f"blocked_gemm needs contiguous (b, b) blocks "
                              f"in {name}, got strides {t.stride()}")
     if Z and nbr and nk:
-        sa, sb, so = ainv.stride(), uh.stride(), out.stride()
-        desc = (sa[0], b, sa[1], sa[3], b, sa[2], sa[4],    # A: (i,a) x (j,c)
-                sb[0], b, sb[2], sb[4], b, sb[1], sb[3],    # B: (j,x) x (k,y)
-                so[0], b, so[2], so[3], b, so[1], so[4])    # C: (i,a) x (k,y)
+        desc = blocked_desc(ainv.stride(), uh.stride(), out.stride(), b)
         _launch(ainv, uh, out, nbr * b, nk * b, nbc * b, Z, 1.0, desc)
     return out

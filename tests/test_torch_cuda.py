@@ -174,3 +174,147 @@ def test_serial_cuda_backend_matches_numpy(cuda_device):
     assert got.keys() == ref.keys()
     err = max(float(np.abs(got[key] - ref[key]).max()) for key in ref)
     assert err <= 1e-12
+
+
+# ---- the tensor-core redesign: each variant and staging path --------------
+
+GEMM_TYPES = [torch.float64, torch.bfloat16, torch.float32]
+GEMM_VARIANT = {torch.float64: "dmma_f64", torch.bfloat16: "hmma_bf16",
+                torch.float32: "fma_f32"}
+
+
+def _randn(shape, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
+
+
+def _misaligned(x):
+    """A copy of ``x`` whose storage starts one element past a 16-byte
+    boundary, so no operand of it is 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("m,k,n", [(33, 17, 129), (200, 130, 70)])
+@pytest.mark.parametrize("dtype", GEMM_TYPES)
+def test_gemm_ragged_rows_repeat_and_batch(cuda_device, m, k, n, dtype):
+    """Rows that are not a multiple of 16 bytes and an N-contiguous B: the
+    guarded staging path, zero-filled at the edges. Held against the plain
+    version; a repeated launch is bitwise equal, and so is each item of a
+    Z = 8 launch to the same item launched alone."""
+    a = _randn((8, m, k), dtype, cuda_device, m)
+    b = _randn((8, k, n), dtype, cuda_device, n)
+    p = bg.plan(m, n, k, dtype, bg.rowmajor_desc(m, k, n),
+                (a.data_ptr(), b.data_ptr()))
+    assert p.variant == GEMM_VARIANT[dtype] and not p.b_async
+    out = bg.block_gemm(a, b, alpha=-1.0)
+    torch.cuda.synchronize()
+    assert _close(out, bg.block_gemm_plain(a, b, alpha=-1.0), dtype)
+    assert torch.equal(bg.block_gemm(a, b, alpha=-1.0), out)
+    for z in range(8):
+        assert torch.equal(bg.block_gemm(a[z], b[z], alpha=-1.0), out[z])
+
+
+@pytest.mark.parametrize("nk", [1, 3])
+@pytest.mark.parametrize("dtype", GEMM_TYPES)
+def test_blocked_gemm_b96_on_arena_views(cuda_device, nk, dtype):
+    """The level product at b = 96, read from and written into strided
+    views of one arena, on the cp.async path with BN = b; bitwise repeat
+    and batch independence (Z = 8 against Z = 1)."""
+    Z, nbr, nbc, b = 8, 3, 4, 96
+    arena = _randn((Z, 40, b, b), dtype, cuda_device, nk)
+    Ainv = arena[:, :nbr * nbc].view(Z, nbr, nbc, b, b)
+    U = _randn((Z, nk, nbc, b, b), dtype, cuda_device, 7 + nk)
+    out = arena[:, 20:20 + nk * nbr].view(Z, nk, nbr, b, b)
+    p = bg.plan(nbr * b, nk * b, nbc * b, dtype,
+                bg.blocked_desc(Ainv.stride(), U.stride(), out.stride(), b),
+                (Ainv.data_ptr(), U.data_ptr()))
+    assert (p.variant, p.bn, p.a_async, p.b_async) == (
+        GEMM_VARIANT[dtype], 96, True, True)
+    ref = bg.blocked_gemm_plain(Ainv, U)
+    bg.blocked_gemm(Ainv, U, out=out)
+    torch.cuda.synchronize()
+    assert _close(out, ref, dtype)
+    assert torch.equal(bg.blocked_gemm(Ainv, U), out)
+    for z in range(Z):
+        assert torch.equal(bg.blocked_gemm(Ainv[z:z + 1], U[z:z + 1])[0],
+                           out[z])
+
+
+@pytest.mark.parametrize("dtype", GEMM_TYPES)
+def test_blocked_gemm_guarded_staging_equals_async(cuda_device, dtype):
+    """The same product from operands one element off 16-byte alignment
+    goes through the guarded element loads, and gives the same bits as the
+    cp.async path: staging moves data, the arithmetic is one."""
+    Z, nbr, nbc, nk, b = 2, 2, 3, 2, 128
+    Ainv = _randn((Z, nbr, nbc, b, b), dtype, cuda_device, 1)
+    U = _randn((Z, nk, nbc, b, b), dtype, cuda_device, 2)
+    Am, Um = _misaligned(Ainv), _misaligned(U)
+    desc = bg.blocked_desc(Am.stride(), Um.stride(),
+                           (nk * nbr * b * b, nbr * b * b, b * b, b, 1), b)
+    p = bg.plan(nbr * b, nk * b, nbc * b, dtype, desc,
+                (Am.data_ptr(), Um.data_ptr()))
+    assert not p.a_async and not p.b_async
+    out = bg.blocked_gemm(Ainv, U)
+    got = bg.blocked_gemm(Am, Um)
+    torch.cuda.synchronize()
+    assert _close(got, bg.blocked_gemm_plain(Ainv, U), dtype)
+    assert torch.equal(got, out)
+
+
+def _flash_inputs(B, S, H, hd, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(B, S, 3, H, hd, device=dev,
+                      generator=g).to(torch.bfloat16)
+    return qkv.unbind(2)
+
+
+def _flash_close(out, ref):
+    # chip_smoke.py's FLASH_BF16_TOL: one bf16 step of the output plus 2e-3
+    return torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=2e-3)
+
+
+@pytest.mark.parametrize("S", [200, 256, 4096])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_tensor_cores(cuda_device, S, hd, causal):
+    """bf16 flash attention on the tensor cores (cp.async K/V ring) from
+    packed-qkv views: S = 200 leaves a ragged q and KV tile, S = 4096 runs
+    the causal diagonal across 32 q tiles. Bitwise repeatable."""
+    B, H = (1, 4) if S == 4096 else (2, 3)
+    q, k, v = _flash_inputs(B, S, H, hd, cuda_device, S + hd)
+    p = fa.plan(B, S, H, hd, q.dtype, causal,
+                [t.stride()[:3] for t in (q, k, v)],
+                [t.data_ptr() for t in (q, k, v)])
+    assert p.variant == "hmma_cpasync"
+    before = fa.plans["hmma_cpasync"]
+    out = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.plans["hmma_cpasync"] == before + 1
+    assert _flash_close(out, fa.flash_attention_plain(q, k, v, causal))
+    assert torch.equal(fa.flash_attention(q, k, v, causal), out)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_guarded_and_head_independent(cuda_device, hd, causal):
+    """Misaligned q, k, v take the guarded element loads and give the same
+    bits as the cp.async path; one (b, h) slice run alone gives the same
+    bits as inside a (2, 3)-head launch."""
+    B, S, H = 2, 200, 3
+    q, k, v = _flash_inputs(B, S, H, hd, cuda_device, hd)
+    out = fa.flash_attention(q, k, v, causal)
+    qm, km, vm = (_misaligned(t.contiguous()) for t in (q, k, v))
+    assert fa.plan(B, S, H, hd, q.dtype, causal,
+                   [t.stride()[:3] for t in (qm, km, vm)],
+                   [t.data_ptr() for t in (qm, km, vm)]
+                   ).variant == "hmma_guarded"
+    got = fa.flash_attention(qm, km, vm, causal)
+    torch.cuda.synchronize()
+    assert _flash_close(got, fa.flash_attention_plain(q, k, v, causal))
+    assert torch.equal(got, out)
+    one = fa.flash_attention(*(t[1:2, :, 2:3] for t in (q, k, v)),
+                             causal=causal)
+    assert torch.equal(one[0, :, 0], out[1, :, 2])
