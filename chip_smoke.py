@@ -17,10 +17,11 @@ on the card:
    beside the card's bound, the plain version and one library call used
    only as a yardstick: the block GEMM in f32, bf16 and f64 on the shapes
    of ``tests/test_kernels.py`` and the main path's batched shapes
-   (``torch.matmul``); trsm in f32/bf16/f64 up to (4096, 256)
+   (``torch.matmul``); trsm in f32/bf16/f64 up to (4096, 256), and at
+   (96, 96) with the serial path's zero rows
    (``torch.linalg.solve_triangular``); RMSNorm in f32/bf16 up to
-   qwen3-32b's widths (``F.rms_norm``); flash attention in f32/bf16, causal
-   and not, up to qwen3-32b's (1, 4096, 64, 128)
+   qwen3-32b's widths, one kernel a call (``F.rms_norm``); flash attention
+   in f32/bf16, causal and not, up to qwen3-32b's (1, 4096, 64, 128)
    (``F.scaled_dot_product_attention``);
 3. runs the main path — ``PSelInvEngine.analyze`` → ``prepare_values`` →
    ``solve`` on grid 4×2 — on the FEM-like (audikw_1 stand-in) and
@@ -31,9 +32,10 @@ on the card:
    f64 one;
 4. runs the serial path — ``factorize`` + ``selinv`` with the ``cuda`` and
    ``torch`` backends in f64 — on the FEM matrix, against the dense
-   inverse and the engine's solve, with one trsm launch per block of
-   struct(K) and one block-GEMM launch per host-loop product, beside the
-   numpy backend's time and a traced split of where the time goes;
+   inverse and the engine's solve, with one trsm launch per supernode
+   (all of struct(K) stacked, on the resident variant) and one block-GEMM
+   launch per host-loop product, beside the numpy backend's time and a
+   traced split of where the time goes;
 5. checks a bucketed ``solve_many`` against single solves, bitwise;
 6. drives the ``ops`` entry points through the port's kernel benchmark
    (``repro_torch.kernels.bench``) and, for RMSNorm and flash attention,
@@ -207,7 +209,7 @@ def cuda_tool(name):
     return str(path)
 
 
-_MANGLED_ARG = re.compile(r"d|f|13__nv_bfloat16|Li(\d+)E|Lb([01])E")
+_MANGLED_ARG = re.compile(r"d|f|13__nv_bfloat16|Li(\d+)E|Lb([01])E|S\d*_")
 _MANGLED_TYPE = {"d": "double", "f": "float",
                  "13__nv_bfloat16": "__nv_bfloat16"}
 
@@ -218,7 +220,7 @@ def instance_name(mangled):
     ``block_gemm_kernel<double, 96>``); the symbol itself if it is not one
     of the port's kernel templates."""
     m = re.search(r"\d+(block_gemm_kernel|flash_hmma_kernel|flash_kernel|"
-                  r"trsm_kernel|rmsnorm_kernel)I", mangled)
+                  r"trsm_kernel|rmsnorm_kernel|rmsnorm_two_pass)I", mangled)
     if not m:
         return mangled
     args, pos = [], m.end()
@@ -226,8 +228,15 @@ def instance_name(mangled):
         a = _MANGLED_ARG.match(mangled, pos)
         if not a:
             return mangled
-        args.append(a.group(1) or {"0": "false", "1": "true"}.get(
-            a.group(2)) or _MANGLED_TYPE[a.group(0)])
+        if a.group(0).startswith("S"):
+            # a substitution: the one class type among the arguments
+            # (__nv_bfloat16) named a second time
+            if "__nv_bfloat16" not in args:
+                return mangled
+            args.append("__nv_bfloat16")
+        else:
+            args.append(a.group(1) or {"0": "false", "1": "true"}.get(
+                a.group(2)) or _MANGLED_TYPE[a.group(0)])
         pos = a.end()
     return f"{m.group(1)}<{', '.join(args)}>"
 
@@ -404,8 +413,14 @@ FLASH_TOL = {"float32": 1e-4}       # sums over up to 4096 keys, rescaled
 # are 0.02-0.04 at S = 4096, and one KV tile left out fails it (checked)
 FLASH_BF16_TOL = dict(rtol=1e-2, atol=2e-3)
 
+# back-to-back calls timed per trsm and RMSNorm row: their calls are tens
+# of µs, where five calls read the host's start-up as much as the call
+SMALL_REPS = 50
 TRSM_SHAPES = [(64, 32), (100, 64), (130, 48), (96, 96), (1440, 96),
                (4096, 256)]
+# the serial path's right-hand sides, A(I,K) after Schur updates, hold
+# whole rows of exact zeros: every other row zero, and all of them
+TRSM_ZERO_SHAPES = [(96, 96, "half"), (96, 96, "all")]
 # configs/qwen3_32b.py: d_model 5120, head_dim 128 (qk-norm over
 # 64 heads of a 4096-token sequence), n_heads 64
 RMS_SHAPES = [(64, 256), (100, 512), (7, 1024), (4096, 5120),
@@ -430,10 +445,11 @@ def _bound(nbytes, nops, dtype_name):
                                        else "operations")
 
 
-def _row(kernel, shape, name, err, fn, plain, lib, nbytes, nops, **kw):
-    ms = timed_ms(fn)
-    plain_ms = timed_ms(plain)
-    lib_ms = None if lib is None else timed_ms(lib)
+def _row(kernel, shape, name, err, fn, plain, lib, nbytes, nops, reps=5,
+         **kw):
+    ms, plain_ms, lib_ms = (None if f is None else
+                            timed_ms(f, reps, max(1, reps // 10))
+                            for f in (fn, plain, lib))
     dev = [None if f is None else device_ms(f) for f in (fn, plain, lib)]
     bms, by = _bound(nbytes, nops, name)
     r = dict(kernel=kernel, shape=shape, dtype=name, ms=ms,
@@ -451,40 +467,77 @@ def _row(kernel, shape, name, err, fn, plain, lib, nbytes, nops, **kw):
     return r
 
 
-def trsm_checks(dev, shapes=TRSM_SHAPES):
+def trsm_checks(dev, shapes=TRSM_SHAPES + TRSM_ZERO_SHAPES):
     """trsm against its plain version in f32/bf16/f64 (U upper with a
     diagonal of 2 and off-diagonal N(0, 1/k), well conditioned at every
-    k); yardstick ``torch.linalg.solve_triangular``, which takes no bf16."""
+    k); yardstick ``torch.linalg.solve_triangular``, which takes no bf16.
+    A shape ``(m, k, "half")`` zeroes every other row of B, ``(m, k,
+    "all")`` every row: the serial path's zero rows."""
     import numpy as np
     import torch
     from repro_torch.kernels import trsm as tk
 
     rng = np.random.default_rng(1)
     rows = []
-    for m, k in shapes:
+    for m, k, *zeros in shapes:
         u0 = np.triu(rng.standard_normal((k, k))) / np.sqrt(k) + 2 * np.eye(k)
         b0 = rng.standard_normal((m, k))
+        label = f"{m}x{k}"
+        if zeros:
+            b0[slice(1, None, 2) if zeros[0] == "half" else slice(None)] = 0.0
+            label += f" {zeros[0]}-zero"
         for name, dt in _dtypes().items():
             u = torch.from_numpy(u0).to(dev, dt)
             b = torch.from_numpy(b0).to(dev, dt)
             out = tk.trsm(b, u)
             torch.cuda.synchronize()
             err, used = check_close("trsm", out, tk.trsm_plain(b, u), name,
-                                    f"{m}x{k}", TRSM_TOL)
+                                    label, TRSM_TOL)
             elt = b.element_size()
+            p = tk.plan(m, k, dt)
             rows.append(_row(
-                "trsm", f"{m}x{k}", name, err, lambda: tk.trsm(b, u),
+                "trsm", label, name, err, lambda: tk.trsm(b, u),
                 lambda: tk.trsm_plain(b, u),
                 None if name == "bfloat16" else
                 lambda: torch.linalg.solve_triangular(u, b, upper=True,
                                                       left=False),
-                (2 * m * k + k * k) * elt, m * k * k, m=m, k=k,
-                tol_used=used))
+                (2 * m * k + k * k) * elt, m * k * k, reps=SMALL_REPS,
+                m=m, k=k, tol_used=used, variant=p.variant,
+                tile=f"{p.rows} rows x 32 columns a block, "
+                     f"{p.group} panel(s) a stage",
+                symbol=trsm_symbol(name)))
     return rows
 
 
+def trsm_symbol(dtype_name):
+    acc = "double" if dtype_name == "float64" else "float"
+    return f"trsm_kernel<{CTYPE[dtype_name]}, {acc}>"
+
+
+def rmsnorm_symbol(dtype_name, p, scale_name):
+    x, sc = CTYPE[dtype_name], CTYPE[scale_name]
+    if p.variant == "two_pass":
+        return f"rmsnorm_two_pass<{x}, {p.width}, {sc}>"
+    return f"rmsnorm_kernel<{x}, {p.width}, {p.ppt}, {sc}>"
+
+
+def kernels_per_call(fn):
+    """The kernels the card runs for one ``fn()`` (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def rmsnorm_checks(dev, shapes=RMS_SHAPES):
-    """RMSNorm against its plain version in f32 and bf16; yardstick
+    """RMSNorm against its plain version in f32 and bf16, the scale in
+    x's type; one kernel a call (torch.profiler); yardstick
     ``torch.nn.functional.rms_norm``."""
     import numpy as np
     import torch
@@ -503,13 +556,21 @@ def rmsnorm_checks(dev, shapes=RMS_SHAPES):
             torch.cuda.synchronize()
             err, used = check_close("rmsnorm", out, rk.rmsnorm_plain(x, s),
                                     name, f"{r}x{d}", RMS_TOL)
+            ran = kernels_per_call(lambda: rk.rmsnorm(x, s))
+            if len(ran) != 1:
+                raise AssertionError(f"rmsnorm {r}x{d} {name}: one call ran "
+                                     f"{len(ran)} kernels: {ran}")
             elt = x.element_size()
+            p = rk.plan(r, d, dt)
             rows.append(_row(
                 "rmsnorm", f"{r}x{d}", name, err, lambda: rk.rmsnorm(x, s),
                 lambda: rk.rmsnorm_plain(x, s),
                 lambda: F.rms_norm(x, (d,), weight=s, eps=1e-5),
-                2 * r * d * elt + d * elt, 4 * r * d, rows=r, d=d,
-                tol_used=used))
+                2 * r * d * elt + d * elt, 4 * r * d, reps=SMALL_REPS,
+                rows=r, d=d, tol_used=used, kernels_per_call=len(ran),
+                variant=p.variant,
+                tile=f"{p.g} threads x {p.ppt} packs of {p.width} a row",
+                symbol=rmsnorm_symbol(name, p, name)))
             del x, s, out
     torch.cuda.empty_cache()
     return rows
@@ -815,15 +876,18 @@ def serial_path(dev, blocks, max_supernode=96):
     """``factorize`` + ``selinv`` with the ``cuda`` and ``torch`` backends
     in f64 on the FEM matrix of phase 3, held against the dense inverse
     (1e-10·max|A⁻¹|) and the engine's f64 solve (1e-12·max|A⁻¹|) on every
-    selected block; the ``cuda`` backend must launch trsm once per block
-    of struct(K) and the block GEMM once per ``gemm``/``matmul`` of the
-    host loop. The numpy backend runs once on the same host as the
-    yardstick, and one traced ``cuda`` run splits its time."""
+    selected block; the ``cuda`` backend must launch trsm once per
+    supernode with a non-empty struct (all of struct(K) stacked), every
+    launch on the resident reciprocal-chain variant, and the block GEMM
+    once per ``gemm``/``matmul`` of the host loop. The numpy backend runs
+    once on the same host as the yardstick, and one traced ``cuda`` run
+    splits its time."""
     import numpy as np
     import torch
     from repro_torch.core.selinv import selinv
     from repro_torch.core.supernodal_lu import factorize
     from repro_torch.core.symbolic import symbolic_factorize
+    from repro_torch.kernels import trsm as tk
 
     A, eng_blk, ref_blk = blocks["A"], blocks["got"], blocks["ref"]
     bs = symbolic_factorize(A, max_supernode=max_supernode)
@@ -832,11 +896,12 @@ def serial_path(dev, blocks, max_supernode=96):
         raise AssertionError(f"serial: {len(keys)} selected blocks, the "
                              f"engine gathered {ref_blk.shape[0]}")
     sizes = [len(s) for s in bs.struct]
-    want = {"trsm": sum(sizes),
-            # factorize: |struct(K)|² Schur updates; selinv: 2 matmuls and
-            # 1 gemm per supernode with a non-empty struct
-            "block_gemm": sum(c * c for c in sizes)
-                          + 3 * sum(1 for c in sizes if c)}
+    with_struct = sum(1 for c in sizes if c)
+    # factorize: one stacked trsm per supernode with a non-empty struct
+    # and |struct(K)|² Schur updates; selinv: 2 matmuls and 1 gemm per
+    # supernode with a non-empty struct
+    want = {"trsm": with_struct,
+            "block_gemm": sum(c * c for c in sizes) + 3 * with_struct}
     scale = ref_blk.abs().max().item()
     res = dict(n=A.shape[0], nsuper=bs.nsuper, blocks=len(keys),
                max_struct=max(sizes), want_launches=want, backends={})
@@ -867,14 +932,18 @@ def serial_path(dev, blocks, max_supernode=96):
         if any(counts[n] != c for n, c in expect.items()):
             raise AssertionError(f"serial {backend}: launches {counts}, "
                                  f"expected {expect}")
+        variants = dict(tk.plans)
+        if backend == "cuda" and variants != {"rcp_resident": want["trsm"]}:
+            raise AssertionError(f"serial cuda: trsm variants {variants}, "
+                                 f"expected every launch on rcp_resident")
         res["backends"][backend] = dict(factorize_s=fs, selinv_s=ss,
                                         err_dense=e_ref, err_engine=e_eng,
-                                        launches=counts)
+                                        launches=counts, variants=variants)
         log(f"serial {backend}: factorize {fs:.2f} s + selinv {ss:.2f} s "
             f"(host clock); {len(keys)} blocks max|Δ| {e_ref:.3e} vs the "
             f"dense inverse, {e_eng:.3e} vs the engine (max|A⁻¹| "
-            f"{scale:.3e}); launches trsm {counts['trsm']}, block_gemm "
-            f"{counts['block_gemm']}")
+            f"{scale:.3e}); launches trsm {counts['trsm']} {variants}, "
+            f"block_gemm {counts['block_gemm']}")
         del Ainv, got
 
     t0 = time.perf_counter()
@@ -963,6 +1032,7 @@ def ops_path(dev, main=OPS_MAIN):
     from repro_torch.kernels import block_gemm as bg
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import trsm as tk
 
     tols = {"block_gemm": (TOL, BF16_TOL), "trsm": (TRSM_TOL, BF16_TOL),
             "rmsnorm": (RMS_TOL, BF16_TOL),
@@ -995,6 +1065,7 @@ def ops_path(dev, main=OPS_MAIN):
     torch.cuda.synchronize()
     counts = read_counts()
     variants = {"flash_attention": dict(fa.plans),
+                "rmsnorm": dict(rk.plans), "trsm": dict(tk.plans),
                 "block_gemm": {" ".join(map(str, k)): c
                                for k, c in bg.plans.items()}}
     del q, k, v
@@ -1064,8 +1135,8 @@ def main() -> int:
     ops = ops_path(dev)
     for r in rows + new_rows:    # ptxas's report of the instance each ran
         if "symbol" in r:
-            lib = "block_gemm" if "block_gemm" in r["symbol"] else \
-                "flash_attention"
+            lib = next(n for n in KERNELS
+                       if r["symbol"].startswith(n.split("_")[0]))
             r["ptxas"] = ptxas.get(lib, {}).get(r["symbol"])
 
     head = next(r for r in rows if r["setting"] == "fem"
@@ -1075,12 +1146,14 @@ def main() -> int:
         "rmsnorm": ("4096x5120", "bfloat16", None),
         "flash_attention": ("1x4096x64x128", "bfloat16", True),
     }
-    # the variant of the two kernels without a plan: trsm (a warp per 4
-    # rows, 32-column panels) and RMSNorm (a block per row above d = 1024)
-    fixed = {"trsm": ("fma_panel32", "4 rows x 32 columns per warp",
-                      "trsm_kernel<double, double>"),
-             "rmsnorm": ("block_per_row", "1 row per block",
-                         "rmsnorm_kernel<__nv_bfloat16, 8, false>")}
+    # each kernel's launches by variant on its main path, from the plans
+    # dicts as that path left them
+    variants = {"block_gemm": {s_["setting"]: s_["variants"]
+                               for s_ in settings},
+                "trsm": {"serial": serial["backends"]["cuda"]["variants"],
+                         "ops": ops["variants"]["trsm"]},
+                "rmsnorm": ops["variants"]["rmsnorm"],
+                "flash_attention": ops["variants"]["flash_attention"]}
     launches = {
         "block_gemm": sum(s_["launches"] for s_ in settings)
         + serial["backends"]["cuda"]["launches"]["block_gemm"]
@@ -1105,7 +1178,7 @@ def main() -> int:
         "shape": f"Z={head['Z']} m={head['m']} k={head['k']} "
                  f"n={head['n']} float64",
         "variant": head["variant"], "tile": head["tile"],
-        "ptxas": head.get("ptxas"),
+        "variants": variants["block_gemm"], "ptxas": head.get("ptxas"),
     }]
     for name, (shape, dt, causal) in heads.items():
         r = next(r for r in new_rows if r["kernel"] == name
@@ -1120,10 +1193,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"], "shape": f"{shape} {dt}"
                      + ("" if causal is None else f" causal={causal}"),
-            "variant": r.get("variant", fixed.get(name, ("",))[0]),
-            "tile": r.get("tile", fixed.get(name, ("", ""))[1]),
-            "ptxas": r.get("ptxas") or ptxas.get(name, {}).get(
-                fixed.get(name, ("", "", ""))[2])})
+            "variant": r["variant"], "tile": r["tile"],
+            "variants": variants[name], "ptxas": r.get("ptxas")})
     wall_s = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

@@ -12,8 +12,8 @@ Block math runs through a pluggable backend:
 * ``cuda``  — the ``torch`` backend with the port's hand-written kernels
   (the counterpart of ``pallas``): the Schur GEMMs and the products of
   selected inversion go through ``kernels.ops.block_gemm[_acc]``, the
-  right-side triangular solve L(I,K) = A(I,K)·U(K,K)⁻¹ through
-  ``kernels.ops.trsm``.
+  right-side triangular solves L(I,K) = A(I,K)·U(K,K)⁻¹ of one supernode
+  through one ``kernels.ops.trsm`` launch (all of struct(K) stacked).
 
 The torch backends carry an explicit device (default ``"cuda"``, which
 raises on a host without a card; ``device="cpu"`` runs on the host, the
@@ -52,10 +52,11 @@ class _NumpyBackend:
         return a @ b
 
     @staticmethod
-    def solve_tri_right_upper(b, u):
-        """X U = B  (U upper)."""
+    def solve_tri_right_upper_many(bs, u):
+        """X_i U = B_i (U upper) for every B_i of ``bs``."""
         import scipy.linalg as sla
-        return sla.solve_triangular(u, b.T, lower=False, trans="T").T
+        return [sla.solve_triangular(u, b.T, lower=False, trans="T").T
+                for b in bs]
 
     @staticmethod
     def solve_tri_left_unit_lower(l, b):
@@ -89,9 +90,10 @@ class _TorchBackend:
     def matmul(self, a, b):
         return a @ b
 
-    def solve_tri_right_upper(self, b, u):
-        """X U = B  (U upper)."""
-        return torch.linalg.solve_triangular(u, b, upper=True, left=False)
+    def solve_tri_right_upper_many(self, bs, u):
+        """X_i U = B_i (U upper) for every B_i of ``bs``."""
+        return [torch.linalg.solve_triangular(u, b, upper=True, left=False)
+                for b in bs]
 
     def solve_tri_left_unit_lower(self, l, b):
         """L X = B  (L unit lower)."""
@@ -109,7 +111,7 @@ class _TorchBackend:
 
 class _CudaBackend(_TorchBackend):
     """The torch backend with the port's hand-written kernels: block GEMM
-    for ``gemm``/``matmul``, trsm for ``solve_tri_right_upper``. The
+    for ``gemm``/``matmul``, trsm for ``solve_tri_right_upper_many``. The
     unit-lower left solve has no TPU kernel and stays
     ``torch.linalg.solve_triangular``."""
     name = "cuda"
@@ -128,8 +130,15 @@ class _CudaBackend(_TorchBackend):
     def matmul(self, a, b):
         return self._kops.block_gemm(a, b)
 
-    def solve_tri_right_upper(self, b, u):
-        return self._kops.trsm(b, u)
+    def solve_tri_right_upper_many(self, bs, u):
+        """X_i U = B_i for every B_i of ``bs`` in one trsm launch: the
+        blocks stacked along the rows, X returned as row slices (each
+        contiguous). Rows are solved independently, so each X_i has the
+        bits of its own launch."""
+        if not bs:
+            return []
+        x = self._kops.trsm(torch.cat(bs), u)
+        return list(x.split([b.shape[0] for b in bs]))
 
     def solve_tri_left_unit_lower(self, l, b):
         """L X = B  (L unit lower). torch.linalg.solve_triangular may
@@ -238,18 +247,17 @@ def factorize(A: sp.spmatrix, bs: BlockStructure | None = None,
         lkk, ukk = dense_lu_nopivot(be.to_numpy(load(K, K)))
         Ldiag[K] = be.asarray(lkk)
         Udiag[K] = be.asarray(ukk)
-        C = bs.struct[K]
-        for I in C:
-            I = int(I)
-            L[(I, K)] = be.solve_tri_right_upper(load(I, K), Udiag[K])
+        C = [int(I) for I in bs.struct[K]]
+        lks = be.solve_tri_right_upper_many([load(I, K) for I in C],
+                                            Udiag[K])
+        for I, lik in zip(C, lks):
+            L[(I, K)] = lik
             U[(K, I)] = be.solve_tri_left_unit_lower(Ldiag[K], load(K, I))
         # Schur complement update over the clique struct(K) x struct(K)
         for I in C:
-            I = int(I)
             lik = L[(I, K)]
             for J in C:
-                J = int(J)
-                work[(I, J)] = be.gemm(load(I, J), lik, U[(K, int(J))])
+                work[(I, J)] = be.gemm(load(I, J), lik, U[(K, J)])
 
     return LUFactors(bs=bs, Ldiag=Ldiag, Udiag=Udiag, L=L, U=U,
                      backend=backend, device=getattr(be, "device", None),

@@ -6,7 +6,8 @@ so a changed source rebuilds and an unchanged one is loaded as built.
 Building needs ``nvcc`` (``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or
 ``PATH``); nothing here runs at import time, so the CPU tests import the
 kernel modules without a toolkit. A failed build raises with nvcc's
-stderr — there is no fallback."""
+stderr — there is no fallback. :func:`launch` calls a bound entry on
+the current stream with as little host work as a call can take."""
 from __future__ import annotations
 
 import ctypes
@@ -18,7 +19,9 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["CSRC", "BUILD_DIR", "nvcc_path", "build", "load"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "nvcc_path", "build", "load", "launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -85,3 +88,14 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _libs[name] = lib
         return lib
+
+
+def launch(fn, index: int, *args) -> int:
+    """``fn(*args, stream)`` on the current stream of CUDA device
+    ``index`` (``tensor.get_device()``), entering a device guard only when
+    it is not the current device; returns the entry's error code (0 on
+    success)."""
+    if index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    with torch.cuda.device(index):
+        return fn(*args, torch.cuda.current_stream(index).cuda_stream)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.core import sparse
+from repro_torch.core import supernodal_lu as slu
 from repro_torch.core.engine import Grid, PSelInvEngine
 from repro_torch.core.selinv import selected_inverse
 from repro_torch.kernels import block_gemm as bg
@@ -170,7 +171,7 @@ def test_serial_cuda_backend_matches_numpy(cuda_device):
     ref, bs = selected_inverse(A, max_supernode=8)
     before = tk.launches
     got, _ = selected_inverse(A, max_supernode=8, backend="cuda")
-    assert tk.launches - before == sum(len(s) for s in bs.struct)
+    assert tk.launches - before == sum(1 for s in bs.struct if len(s))
     assert got.keys() == ref.keys()
     err = max(float(np.abs(got[key] - ref[key]).max()) for key in ref)
     assert err <= 1e-12
@@ -318,3 +319,100 @@ def test_flash_bf16_guarded_and_head_independent(cuda_device, hd, causal):
     one = fa.flash_attention(*(t[1:2, :, 2:3] for t in (q, k, v)),
                              causal=causal)
     assert torch.equal(one[0, :, 0], out[1, :, 2])
+
+
+# ---- trsm: the reciprocal chain, zero rows, one launch per supernode ------
+
+def _upper(k, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    u = np.triu(rng.standard_normal((k, k))) / np.sqrt(k) + 2 * np.eye(k)
+    return torch.from_numpy(u).to(dev, dtype)
+
+
+@pytest.mark.parametrize("zeros", ["half", "all"])
+@pytest.mark.parametrize("m,k", [(96, 96), (130, 48), (4096, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_trsm_zero_rows_match_plain(cuda_device, m, k, dtype, zeros):
+    """Right-hand sides with whole rows of exact zeros, as the serial
+    path's A(I,K) after Schur updates hold: every other row, or all."""
+    u = _upper(k, dtype, cuda_device, k)
+    b = _randn((m, k), dtype, cuda_device, m)
+    b[slice(1, None, 2) if zeros == "half" else slice(None)] = 0
+    out = tk.trsm(b, u)
+    torch.cuda.synchronize()
+    assert _close(out, tk.trsm_plain(b, u), dtype)
+    assert (out[1::2] == 0).all()
+
+
+def test_trsm_stacked_launch_is_bitwise_per_block(cuda_device):
+    """The serial path's stacked solve: ragged blocks of one supernode's
+    struct(K) against one U(K,K), k = 96 in f64, in one launch, give the
+    bits of one launch per block (the plans differ: 8 rows a block for
+    each block alone, more for the stack)."""
+    k, sizes = 96, [96, 17, 96, 1, 64, 96, 33] * 8
+    u = _upper(k, torch.float64, cuda_device, 5)
+    bs = [_randn((n, k), torch.float64, cuda_device, i)
+          for i, n in enumerate(sizes)]
+    bs[2][::3] = 0
+    be = slu.get_backend("cuda", cuda_device)
+    before, plans = tk.launches, dict(tk.plans)
+    xs = be.solve_tri_right_upper_many(bs, u)
+    torch.cuda.synchronize()
+    assert tk.launches == before + 1
+    assert tk.plan(sum(sizes), k, torch.float64) != tk.plan(96, k,
+                                                            torch.float64)
+    assert tk.plans["rcp_resident"] == plans.get("rcp_resident", 0) + 1
+    for b, x in zip(bs, xs, strict=True):
+        assert x.is_contiguous()
+        assert torch.equal(x, tk.trsm(b, u))
+    assert _close(torch.cat(xs), tk.trsm_plain(torch.cat(bs), u),
+                  torch.float64)
+
+
+# ---- RMSNorm: one read, the scale in its own type, one launch a call ------
+
+def _kernels_in(fn):
+    """The names of the kernels the card ran for ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in p.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("d", [128, 1001, 5120, 16384])
+@pytest.mark.parametrize("stype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_scale_types_one_launch(cuda_device, d, stype, dtype):
+    """x in f32 or bf16 with the scale in either type, read as it is:
+    one kernel a call (no conversion of the scale), held against the
+    plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn(37, d, device=cuda_device, generator=g).to(dtype)
+    s = torch.randn(d, device=cuda_device, generator=g).to(stype)
+    before = rk.launches
+    out = rk.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rk.launches == before + 1
+    assert _close(out, rk.rmsnorm_plain(x, s), dtype)
+    names = _kernels_in(lambda: rk.rmsnorm(x, s))
+    assert len(names) == 1 and "rmsnorm" in names[0], names
+
+
+def test_rmsnorm_two_pass_and_misaligned(cuda_device):
+    """Past the register budget (d = 40960 bf16) the two-pass variant; a
+    misaligned x takes element loads; both held against the plain."""
+    x = torch.randn(5, 40960, device=cuda_device).to(torch.bfloat16)
+    s = torch.randn(40960, device=cuda_device).to(torch.bfloat16)
+    before = rk.plans["two_pass"]
+    assert _close(rk.rmsnorm(x, s), rk.rmsnorm_plain(x, s), torch.bfloat16)
+    assert rk.plans["two_pass"] == before + 1
+    xm = _misaligned(torch.randn(9, 5120, device=cuda_device))
+    sm = torch.randn(5120, device=cuda_device)
+    assert not rk.plan(9, 5120, xm.dtype, xm.data_ptr() % 16 == 0).vec
+    assert _close(rk.rmsnorm(xm, sm), rk.rmsnorm_plain(xm, sm),
+                  torch.float32)

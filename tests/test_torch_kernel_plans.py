@@ -1,23 +1,29 @@
 """The launch plans of the redesigned Hopper kernels, on the CPU.
 
-``block_gemm.plan`` and ``flash_attention.plan`` are pure Python: they
-choose each launch's variant, tile, staging and (for flash) launch order,
-and the CUDA entries take that choice as it is. These tests hold the
-choices to the kernels' contracts without a card: every output element is
-covered by exactly one block and one thread, the choice never depends on
-the batch (Z, or B·H), K slabs never straddle a b-wide block, the cp.async
-path is never chosen for an operand it would read misaligned, and the
-causal launch order is a permutation of the q tiles, heaviest first.
+``block_gemm.plan``, ``flash_attention.plan``, ``trsm.plan`` and
+``rmsnorm.plan`` are pure Python: they choose each launch's variant,
+tile, staging and (for flash) launch order, and the CUDA entries take that
+choice as it is. These tests hold the choices to the kernels' contracts
+without a card: every output element is covered by exactly one block and
+one thread, the choice never depends on the batch (Z, B·H, or RMSNorm's
+rows), K slabs never straddle a b-wide block, the cp.async path is never
+chosen for an operand it would read misaligned, the causal launch order is
+a permutation of the q tiles, heaviest first, trsm fills the SMs and fits
+shared memory, and RMSNorm leaves no idle pass at qwen3-32b's widths.
 
 The thread maps below mirror ``csrc/block_gemm.cu`` (``DmmaCore``,
 ``HmmaCore``, ``FmaCore``: ``each``, ``at``; ``stage_async``,
-``guarded_rk``)."""
+``guarded_rk``), ``csrc/trsm.cu`` (rows and lanes of ``trsm_kernel``) and
+``csrc/rmsnorm.cu`` (packs of ``rmsnorm_kernel``)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import block_gemm as bg
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import launch_cost, trsm_sweep
+from repro_torch.kernels import rmsnorm as rk
+from repro_torch.kernels import trsm as tk
 
 GEMM_TYPES = [torch.float64, torch.bfloat16, torch.float32]
 VARIANT = {torch.float64: "dmma_f64", torch.bfloat16: "hmma_bf16",
@@ -268,3 +274,163 @@ def test_flash_cp_async_never_on_a_misaligned_operand(case):
         strides = [packed, tuple(bad), packed]
     assert fa.plan(B, S, H, hd, torch.bfloat16, True, strides,
                    addrs).variant == "hmma_guarded"
+
+
+# ---- trsm and RMSNorm (csrc/trsm.cu, csrc/rmsnorm.cu) ----------------------
+
+# chip_smoke.TRSM_SHAPES, and the serial path's stacked struct(K) solves at
+# k = 96 (a few to thirty 96-row blocks)
+TRSM_CASES = [(64, 32), (100, 64), (130, 48), (96, 96), (1440, 96),
+              (4096, 256), (960, 96), (2880, 96), (1, 1), (33, 250)]
+TRSM_TYPES = [torch.float64, torch.float32, torch.bfloat16]
+
+
+def _trsm_outputs(p, m, k, block, warp):
+    """The (row, column) outputs warp ``warp`` of block ``block`` stores,
+    as ``csrc/trsm.cu`` maps them: RPW rows of the warp, lane c on column
+    p0 + c of each 32-column panel."""
+    row0 = block * p.rows + warp * tk.RPW
+    kpad = -(-k // tk.PW) * tk.PW
+    return [(row0 + rr, p0 + lane) for p0 in range(0, kpad, tk.PW)
+            for rr in range(tk.RPW) for lane in range(32)
+            if row0 + rr < m and p0 + lane < k]
+
+
+@pytest.mark.parametrize("m,k", TRSM_CASES)
+@pytest.mark.parametrize("dtype", TRSM_TYPES)
+def test_trsm_plan_covers_each_output_once(dtype, m, k):
+    p = tk.plan(m, k, dtype)
+    assert p.rows == tk.RPW * p.warps and p.warps in tk.WARPS
+    gx, gz = p.grid(m, 3)
+    assert gz == 3 and (gx - 1) * p.rows < m <= gx * p.rows
+    cover = np.zeros((m, k), dtype=np.int32)
+    for block in range(gx):
+        for warp in range(p.warps):
+            for r, c in _trsm_outputs(p, m, k, block, warp):
+                cover[r, c] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("m,k", TRSM_CASES)
+@pytest.mark.parametrize("dtype", TRSM_TYPES)
+def test_trsm_plan_fills_the_card_and_fits_shared_memory(dtype, m, k):
+    """Four warps a block while eight-warp blocks would leave more than
+    half the SMs idle, eight from there (4096 x 256: 128 blocks of 32
+    rows); the resident variant whenever the whole triangle fits a block,
+    the streamed one otherwise; neither passes the block limit. The plan
+    never looks at Z."""
+    p = tk.plan(m, k, dtype)
+    assert p.warps == (8 if -(-m // 32) >= tk.SMS // 2 else 4)
+    if m >= 32 * tk.SMS:
+        assert p.grid(m, 1)[0] >= tk.SMS
+    assert p.smem <= tk.SMEM_LIMIT
+    acc = 8 if dtype == torch.float64 else 4
+    kpad = -(-k // tk.PW) * tk.PW
+    np_ = kpad // tk.PW
+    resident = (kpad + 512 * np_ * (np_ + 1) + p.rows * kpad) * acc
+    assert (p.variant, p.group, p.smem) == (
+        ("rcp_resident", np_, resident) if resident <= tk.SMEM_LIMIT else
+        ("rcp_streamed", 1, (kpad + kpad * tk.PW + p.rows * kpad) * acc))
+    assert {tk.plan(m, k, dtype).grid(m, Z)[0] for Z in (1, 2, 8)} \
+        == {p.grid(m, 1)[0]}
+
+
+def test_trsm_plan_of_the_serial_path_is_resident():
+    """The serial path's k <= 96 solves in f64 stage all of U once."""
+    for m in (8, 96, 960, 2880):
+        for k in (32, 48, 64, 96):
+            assert tk.plan(m, k, torch.float64).variant == "rcp_resident"
+    assert tk.plan(4096, 256, torch.float64).variant == "rcp_streamed"
+    assert tk.plan(4096, 256, torch.float32).variant == "rcp_resident"
+    assert tk.plan(4096, 256, torch.float64).rows == 32
+    assert tk.plan(1440, 96, torch.float64).rows == 16
+
+
+def _rms_slots(p, d):
+    """Every element of a row, as often as the one-read kernel touches
+    it: thread gid of the row holds packs gid + q·g, q < ppt, of
+    ``width`` elements each (the last one guarded by c < d)."""
+    cover = np.zeros(d, dtype=np.int32)
+    for gid in range(p.g):
+        for q in range(p.ppt):
+            c = (gid + q * p.g) * p.width
+            if c < d:
+                cover[c:c + p.width] += 1
+    return cover
+
+
+RMS_CASES = [(5120, torch.bfloat16), (5120, torch.float32),
+             (128, torch.bfloat16), (128, torch.float32),
+             (1001, torch.bfloat16), (1001, torch.float32),
+             (1024, torch.bfloat16), (16384, torch.bfloat16),
+             (16384, torch.float32), (256, torch.float32),
+             (512, torch.float32), (3, torch.float32),
+             (16384 - 8, torch.float32), (4096, torch.float32)]
+
+
+@pytest.mark.parametrize("d,dtype", RMS_CASES)
+def test_rmsnorm_plan_covers_each_element_once(d, dtype):
+    p = rk.plan(4096, d, dtype)
+    assert p.variant == "one_read"
+    assert (_rms_slots(p, d) == 1).all()
+    assert p.ppt in rk.PPTS and p.ppt * p.width <= rk.MAX_ELEMS
+    assert p.threads % 32 == 0 and p.threads <= rk.MAX_THREADS
+    if p.g <= 32:
+        assert p.g & (p.g - 1) == 0 and p.threads == rk.WARP_ROW_BLOCK
+    else:
+        assert p.g == p.threads and p.g % 32 == 0
+    # rows per block tile the rows
+    assert p.grid(4096) * p.rows_per_block() >= 4096
+    assert (p.grid(4096) - 1) * p.rows_per_block() < 4096
+
+
+@pytest.mark.parametrize("d,dtype,g,ppt", [
+    (5120, torch.bfloat16, 320, 2), (128, torch.bfloat16, 16, 1),
+    (128, torch.float32, 32, 1), (5120, torch.float32, 320, 4)])
+def test_rmsnorm_plan_has_no_idle_pass(d, dtype, g, ppt):
+    """qwen3-32b's d_model and head_dim: every slot of every thread holds
+    a pack of the row (320 threads x 2 packs at d = 5120 bf16; 16 threads
+    x 1 pack, two rows a warp, at d = 128 bf16)."""
+    p = rk.plan(4096, d, dtype)
+    assert (p.g, p.ppt, p.vec) == (g, ppt, True)
+    assert p.g * p.ppt * p.width == d
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_two_pass_only_past_the_register_budget(dtype):
+    """One read up to 512 threads x 32 elements (16-byte packs) or x 8
+    elements (element loads); the two-pass variant past that."""
+    budget = rk.MAX_THREADS * rk.MAX_ELEMS
+    per = 16 // dtype.itemsize
+    elems = rk.MAX_THREADS * max(rk.PPTS)
+    assert rk.plan(1, budget, dtype).variant == "one_read"
+    assert rk.plan(1, budget + per, dtype).variant == "two_pass"
+    assert rk.plan(1, budget, dtype, aligned=False).variant == "two_pass"
+    assert rk.plan(1, elems, dtype, aligned=False).variant == "one_read"
+    assert rk.plan(1, elems + 1, dtype).variant == "two_pass"
+    for d in (1, 7, 128, 1001, 4096, 5120, 12000, 16384):
+        assert rk.plan(1, d, dtype).variant == "one_read"
+    p = rk.plan(1, 2 * budget, dtype)
+    assert (p.ppt, p.threads) == (0, rk.TWO_PASS_THREADS)
+
+
+@pytest.mark.parametrize("d,dtype", RMS_CASES)
+def test_rmsnorm_plan_is_the_same_for_every_batch(d, dtype):
+    plans = {rk.plan(rows, d, dtype) for rows in (1, 7, 64, 4096, 262144)}
+    assert len(plans) == 1
+
+
+@pytest.mark.parametrize("tool", [launch_cost, trsm_sweep])
+def test_card_timing_tools_refuse_the_cpu(tool):
+    """The wrapper-cost and plan-sweep tools time the card only: on the
+    CPU they raise before timing anything."""
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tool.run(device="cpu")
+
+
+def test_trsm_sweep_covers_the_plans_of_its_shapes():
+    """Each shape's plan is one of the choices the sweep times."""
+    for m, k, dt in trsm_sweep.SHAPES:
+        p = tk.plan(m, k, dt)
+        kpad = -(-k // tk.PW) * tk.PW
+        assert p.warps in (2, 4, 8) and p.group in {kpad // tk.PW, 1}

@@ -196,6 +196,8 @@ def test_kernel_modules_import_without_nvcc():
     """Importing the new kernel modules builds nothing and looks for no
     toolkit: the build happens at the first CUDA launch."""
     code = ("import repro_torch.kernels.ops, repro_torch.kernels.bench\n"
+            "import repro_torch.kernels.launch_cost\n"
+            "import repro_torch.kernels.trsm_sweep\n"
             "import repro_torch.kernels._build as b\n"
             "from repro_torch.kernels import trsm, rmsnorm, "
             "flash_attention\n"

@@ -139,9 +139,10 @@ def test_no_host_conversion_through_np_asarray(monkeypatch, backend):
 
 
 def test_cuda_backend_goes_through_the_kernel_entry_points(monkeypatch):
-    """The ``cuda`` backend's GEMMs reach ``ops.block_gemm[_acc]`` and its
-    right-side solve ``ops.trsm``, once per call of the host loop, each
-    with the row-major operands the card's kernels take."""
+    """The ``cuda`` backend's GEMMs reach ``ops.block_gemm[_acc]``, once
+    per call of the host loop, and its right-side solves ``ops.trsm``,
+    once per supernode with a non-empty struct (all of struct(K) stacked),
+    each with the row-major operands the card's kernels take."""
     calls = {"block_gemm": 0, "block_gemm_acc": 0, "trsm": 0}
     for name in calls:
         fn = getattr(ops, name)
@@ -157,10 +158,36 @@ def test_cuda_backend_goes_through_the_kernel_entry_points(monkeypatch):
     selinv(lu)
     sizes = [len(s) for s in lu.bs.struct]
     with_struct = sum(1 for c in sizes if c)
-    assert calls == {"trsm": sum(sizes),
+    assert calls == {"trsm": with_struct,
                      "block_gemm_acc": sum(c * c for c in sizes)
                      + with_struct,
                      "block_gemm": 2 * with_struct}
+
+
+def test_stacked_supernode_solve_equals_per_block_solves(monkeypatch):
+    """The ``cuda`` backend solves all of struct(K) in one stacked trsm;
+    on the CPU each block of it equals that block's own solve within
+    1e-14·max|X| in f64, and comes back contiguous."""
+    cls = slu._CudaBackend
+    stacked = cls.solve_tri_right_upper_many
+    seen = []
+
+    def check(self, bs, u):
+        xs = stacked(self, bs, u)
+        for b, x in zip(bs, xs, strict=True):
+            want = ops.trsm(b, u)
+            assert x.is_contiguous() and x.shape == b.shape
+            assert (x - want).abs().max().item() <= \
+                1e-14 * want.abs().max().item()
+        seen.append(len(bs))
+        return xs
+    monkeypatch.setattr(cls, "solve_tri_right_upper_many", check)
+    lu = slu.factorize(_matrix(), max_supernode=6, backend="cuda",
+                       device="cpu", dtype=torch.float64)
+    sizes = [len(s) for s in lu.bs.struct]
+    assert seen == sizes and max(sizes) > 1
+    assert _max_diff(lu.L, slu.factorize(_matrix(), max_supernode=6).L) \
+        <= TOL
 
 
 def test_backend_cache_and_factor_records():
