@@ -30,12 +30,25 @@ on the card:
    bitwise-equal repeated solves, one kernel launch per planned GEMM op,
    every f64 launch on the DMMA variant, and the f32 solve against the
    f64 one;
+3b. runs the level-serial (``PlanOptions(overlap=False)``) and stream
+   (``PlanOptions(stream=True)``) executors on the same prepared values:
+   selected blocks against the dense inverse, the stream bitwise equal to
+   the overlapped solve, the level-serial sweep within 1e-12·max|A⁻¹| of
+   it, one block-GEMM launch per planned GEMM, repeated solves bitwise
+   equal and, on FEM, a bucketed batch of 3 bitwise equal to its single
+   solves for every executor;
+3c. replays the FEM setting's overlapped solve round by round
+   (``engine.profile_rounds``, each round fenced): the round count and
+   wire bytes against the plan, the replay's A⁻¹ bitwise against the
+   solve, the slowest rounds beside the α-β model, skew and fitted α/β;
 4. runs the serial path — ``factorize`` + ``selinv`` with the ``cuda`` and
    ``torch`` backends in f64 — on the FEM matrix, against the dense
    inverse and the engine's solve, with one trsm launch per supernode
    (all of struct(K) stacked, on the resident variant) and one block-GEMM
-   launch per host-loop product, beside the numpy backend's time and a
-   traced split of where the time goes;
+   launch per host-loop product, beside the numpy backend's time, a
+   traced split of where the time goes, and all of the path's stacked trsm
+   solves timed through the kernel and ``torch.linalg.solve_triangular``
+   beside their summed bound;
 5. checks a bucketed ``solve_many`` against single solves, bitwise;
 6. drives the ``ops`` entry points through the port's kernel benchmark
    (``repro_torch.kernels.bench``) and, for RMSNorm and flash attention,
@@ -656,31 +669,46 @@ def selected_keys(bs):
     return keys
 
 
+def selected_index(bs, dev):
+    """The (row, column) supernode index tensors of
+    :func:`selected_keys`."""
+    import numpy as np
+    import torch
+    return tuple(torch.as_tensor(np.array(x), device=dev)
+                 for x in zip(*selected_keys(bs)))
+
+
+def selected_blocks(out, eng, dev):
+    """The selected blocks of a solve's A⁻¹ shards, in
+    :func:`selected_keys` order."""
+    from repro_torch.core.pselinv_dist import gather_blocks
+    rs, cs = selected_index(eng.bs, dev)
+    return gather_blocks(out.double(), eng)[rs, cs]
+
+
 def selected_error(out, eng, A, dev):
     """max|Δ| between the solve and the dense f64 inverse (computed on
     the card, as a check only) over the selected blocks, max|A⁻¹| over
     them, and both stacks of blocks, in :func:`selected_keys` order."""
-    import numpy as np
     import torch
-    from repro_torch.core.pselinv_dist import gather_blocks
 
     b, nb0 = eng.b, eng.bs.nsuper
-    rs, cs = (torch.as_tensor(np.array(x), device=dev)
-              for x in zip(*selected_keys(eng.bs)))
+    rs, cs = selected_index(eng.bs, dev)
     dense = torch.as_tensor(A.toarray(), device=dev)
     inv = torch.linalg.inv(dense)
     del dense
     ref = inv.view(nb0, b, nb0, b).permute(0, 2, 1, 3)[rs, cs]
     del inv
-    got = gather_blocks(out.double(), eng)[rs, cs]
+    got = selected_blocks(out, eng, dev)
     err = (got - ref).abs().max().item()
     return err, ref.abs().max().item(), got, ref
 
 
-def main_path(dev, setting, make, b, grid=(4, 2), keep=False):
-    """The engine's main path on one setting; with ``keep`` the result
-    also holds the matrix and the selected blocks of the solve and of the
-    dense inverse (``res["_blocks"]``) for the serial phase."""
+def main_path(dev, setting, make, b, grid=(4, 2)):
+    """The engine's main path on one setting. The result also holds, in
+    ``res["_state"]``, what the later phases reuse: the matrix, the
+    session, its prepared values and f64 solve, and the selected blocks
+    of the solve and of the dense inverse (see :func:`release`)."""
     import torch
     from repro_torch.core import sparse
     from repro_torch.core.engine import Grid, PSelInvEngine
@@ -776,13 +804,22 @@ def main_path(dev, setting, make, b, grid=(4, 2), keep=False):
         f"{nblk} blocks max|Δ| {err:.3e} (max|A⁻¹| {scale:.3e}); repeated "
         f"solves bitwise equal; f32 vs f64 {rel32:.2e} · max|A⁻¹|; peak "
         f"{peak:.1f} GiB")
-    if keep:
-        res["_blocks"] = dict(A=A, got=got, ref=ref)
-    del out, out32, vals, eng, got, ref
+    res["_state"] = dict(A=A, eng=eng, vals=vals, out=out, got=got,
+                         ref=ref, scale=scale,
+                         solve_ms=res["solve_ms_f64_median"])
+    del out32
+    return res
+
+
+def release(res):
+    """Drop a setting's kept state (:func:`main_path`) from the card."""
+    import torch
+    from repro_torch.core.engine import PSelInvEngine
+
+    res.pop("_state", None)
     PSelInvEngine.clear_cache()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    return res
 
 
 def profile_solve(eng, vals):
@@ -836,6 +873,253 @@ def profile_solve(eng, vals):
     return {"wall_us": wall_us, "busy_us": busy, "classes_us": classes,
             "top_kernels": [dict(us=t, count=c, name=k)
                             for t, c, k in sorted(kernels, reverse=True)[:10]]}
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the level-serial and stream executors on phase 3's settings
+# ---------------------------------------------------------------------------
+
+EXECUTORS = ("level_serial", "stream")
+
+
+def _options(name):
+    from repro_torch.core.plan import PlanOptions
+    return {"overlapped": PlanOptions(),
+            "level_serial": PlanOptions(overlap=False),
+            "stream": PlanOptions(stream=True)}[name]
+
+
+def _events_ms(fn, reps=3):
+    """Each of ``reps`` calls of ``fn`` between CUDA events; returns the
+    times (ms) and the last call's result."""
+    import torch
+    times, out = [], None
+    for _ in range(reps):
+        out = None
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return times, out
+
+
+def batch_check(eng, vals, what):
+    """A bucketed batch of three value sets (the prepared values, and two
+    exact power-of-two rescalings of them) against the three single
+    solves, bitwise."""
+    import torch
+    from repro_torch.core.engine import SolveValues
+
+    sets = [vals, SolveValues(vals.Lh * 0.5, vals.Dinv),
+            SolveValues(vals.Lh, vals.Dinv * 2.0)]
+    singles = [eng.solve(v, dtype=torch.float64) for v in sets]
+    batch = eng.solve(SolveValues(torch.stack([v.Lh for v in sets]),
+                                  torch.stack([v.Dinv for v in sets])),
+                      dtype=torch.float64, bucket=True)
+    torch.cuda.synchronize()
+    for i, single in enumerate(singles):
+        if not torch.equal(batch[i], single):
+            raise AssertionError(f"{what}: batch item {i} differs from "
+                                 "its single solve")
+    del singles, batch
+
+
+def padded_check(eng, vals, out, setting):
+    """The stream with its level tables NK-padded, as the JAX stream runs
+    them (every level's GEMM and diagonal einsum at the widest level's
+    shape, the padded rows masked to zero), against the solve at each
+    level's own nk: bitwise, one GEMM launch per planned GEMM."""
+    import torch
+    from repro_torch.core.pselinv_dist import make_sweep_stream
+
+    st = eng.program.stream_tables
+    zero_counts()
+    padded = make_sweep_stream(eng.program, eng.tables, padded=True)(
+        vals.Lh, vals.Dinv)
+    torch.cuda.synchronize()
+    launches = read_counts()["block_gemm"]
+    if launches != eng.gemm_ops() or not torch.equal(padded, out):
+        raise AssertionError(f"{setting} stream: NK-padded levels give "
+                             f"other bits or {launches} GEMM launches")
+    log(f"{setting} stream: NK={st.NK}-padded level tables give the same "
+        f"bits as each level's own nk ({launches} GEMM launches)")
+
+
+def executor_path(dev, setting, state, b, grid=(4, 2), batch=False):
+    """Phase 3b: ``PlanOptions(overlap=False)`` and ``PlanOptions(
+    stream=True)`` on the values phase 3 prepared (they do not depend on
+    the executor): analyze s, solve ms (median of 3, CUDA events), one
+    block-GEMM launch per planned GEMM (all on the DMMA variant),
+    ppermute rounds and the stream's wire bytes. Fails unless the
+    selected blocks are within 1e-10·max|A⁻¹| of the dense inverse, the
+    stream is bitwise equal to the overlapped solve, the level-serial
+    sweep within 1e-12·max|A⁻¹| of it, repeated solves bitwise equal and,
+    with ``batch``, a bucketed batch of 3 bitwise equal to its single
+    solves for each executor (the overlapped one too) and the NK-padded
+    stream bitwise equal to the stream. Each executor's solve is traced
+    once for its device-busy breakdown."""
+    import torch
+    from repro_torch.core.engine import Grid, PSelInvEngine
+    from repro_torch.core.simulator import executed_wire_bytes
+    from repro_torch.kernels import block_gemm as bg
+
+    A, vals, out_ov = state["A"], state["vals"], state["out"]
+    ref, scale = state["ref"], state["scale"]
+    wire_ov = executed_wire_bytes(state["eng"])
+    res = {}
+    if batch:
+        batch_check(state["eng"], vals, f"{setting} overlapped")
+    for name in EXECUTORS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = PSelInvEngine.analyze(A, b=b, grid=Grid(*grid),
+                                    options=_options(name), device=dev)
+        torch.cuda.synchronize()
+        analyze_s = time.perf_counter() - t0
+        gemm_ops = eng.gemm_ops()
+        zero_counts()
+        out = eng.solve(vals, dtype=torch.float64)
+        torch.cuda.synchronize()
+        launches = read_counts()["block_gemm"]
+        variants = {" ".join(map(str, k)): c for k, c in bg.plans.items()}
+        if launches != gemm_ops:
+            raise AssertionError(f"{setting} {name}: {launches} block_gemm "
+                                 f"launches, plan has {gemm_ops} gemm ops")
+        if any(k[0] != "dmma_f64" for k in bg.plans):
+            raise AssertionError(f"{setting} {name}: the f64 solve ran "
+                                 f"{variants}, not only the DMMA variant")
+        solve_ms, again = _events_ms(
+            lambda: eng.solve(vals, dtype=torch.float64))
+        if not torch.equal(again, out):
+            raise AssertionError(f"{setting} {name}: repeated solve differs")
+        del again
+        err = (selected_blocks(out, eng, dev) - ref).abs().max().item()
+        if not err <= 1e-10 * scale:
+            raise AssertionError(f"{setting} {name}: selected blocks max|Δ| "
+                                 f"{err:.3e} > 1e-10 · max|A⁻¹| {scale:.3e}")
+        vs_ov = (out - out_ov).abs().max().item()
+        if name == "stream" and not torch.equal(out, out_ov):
+            raise AssertionError(f"{setting} stream: not bitwise equal to "
+                                 f"the overlapped solve (max|Δ| {vs_ov:.3e})")
+        if not vs_ov <= 1e-12 * scale:
+            raise AssertionError(f"{setting} {name}: max|Δ| {vs_ov:.3e} "
+                                 f"from the overlapped solve > 1e-12 · "
+                                 f"max|A⁻¹| {scale:.3e}")
+        if batch:
+            batch_check(eng, vals, f"{setting} {name}")
+        if batch and name == "stream":
+            padded_check(eng, vals, out, setting)
+        log(f"{setting} {name}:")
+        prof = profile_solve(eng, vals)
+        st = eng.stats()
+        r = dict(analyze_s=analyze_s, solve_ms=solve_ms,
+                 solve_ms_median=statistics.median(solve_ms),
+                 gemm_ops=gemm_ops, launches=launches, variants=variants,
+                 ppermute_rounds=st["ppermute_rounds"],
+                 peak_arena_blocks=st["peak_arena_blocks"],
+                 table_bytes=st["table_bytes"], max_err=err,
+                 vs_overlapped=vs_ov, batch_checked=batch, profile=prof)
+        wire = ""
+        if name == "stream":
+            r["stream_wire_bytes"] = st["stream_wire_bytes"]
+            r["stream_shifts_per_round"] = st["stream_shifts_per_round"]
+            r["overlapped_wire_bytes"] = wire_ov
+            wire = (f", stream wire {st['stream_wire_bytes']:.0f} B "
+                    f"({st['stream_shifts_per_round']:.2f} slots a round; "
+                    f"{st['stream_wire_bytes'] / wire_ov:.2f}x the "
+                    f"overlapped executed wire {wire_ov:.0f} B)")
+        log(f"{setting} {name}: analyze {analyze_s:.2f} s (host clock), "
+            f"solve f64 {r['solve_ms_median']:.1f} ms (median of "
+            f"{[round(x, 1) for x in solve_ms]}, CUDA events, against "
+            f"{state['solve_ms']:.1f} ms overlapped); {launches} block_gemm "
+            f"launches = {gemm_ops} gemm ops; {st['ppermute_rounds']} "
+            f"ppermute rounds{wire}; selected max|Δ| {err:.3e}; "
+            f"vs overlapped max|Δ| {vs_ov:.3e}"
+            + (" (bitwise equal)" if name == "stream" else "")
+            + "; repeated solve bitwise equal"
+            + ("; batch of 3 bucketed to 4 bitwise equal to singles"
+               if batch else ""))
+        res[name] = r
+        del out, eng
+        PSelInvEngine.clear_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the per-round profiling replay on the FEM setting
+# ---------------------------------------------------------------------------
+
+def profile_path(dev, setting, state, reps=3):
+    """Phase 3c: ``engine.profile_rounds`` of phase 3's overlapped session
+    (each round a segment fenced with ``torch.cuda.synchronize()``, the
+    minimum of ``reps``). Fails unless it covers ``len(overlap_plan.
+    rounds)`` rounds, its wire bytes equal ``executed_wire_bytes`` and
+    its A⁻¹ equals the solve bitwise. Prints the five slowest rounds
+    beside the α-β model's time for them (the simulator's default
+    network, a Cray XC30 — a model, not this card), the sum of the
+    segments against the fused solve, the inbound skew and the fitted
+    α/β."""
+    import torch
+    from repro_torch.core.simulator import executed_wire_bytes
+
+    eng, vals, out = state["eng"], state["vals"], state["out"]
+    ov = eng.program.overlap_plan
+    t0 = time.perf_counter()
+    prof = eng.profile_rounds(vals, reps=reps, dtype=torch.float64)
+    wall_s = time.perf_counter() - t0
+    if prof.nrounds != len(ov.rounds) or len(prof.samples) != len(ov.rounds):
+        raise AssertionError(f"profile: {prof.nrounds} rounds / "
+                             f"{len(prof.samples)} segments, the plan has "
+                             f"{len(ov.rounds)}")
+    wire = executed_wire_bytes(eng.program)
+    if prof.wire_bytes() != wire:
+        raise AssertionError(f"profile: wire {prof.wire_bytes()} B, "
+                             f"executed {wire} B")
+    if not torch.equal(prof.ainv, out):
+        raise AssertionError("profile: the replay's A⁻¹ differs from the "
+                             "solve")
+    slow = sorted(prof.samples, key=lambda s: -s.wall_us)[:5]
+    seg_sum_ms = prof.wall_us / 1e3
+    sk = prof.skew()
+    alpha, beta = prof.fit_alpha_beta()
+    comp = [s for s in prof.samples if not s.pure_comm]
+    pure = [s for s in prof.samples if s.pure_comm]
+    log(f"profile {setting}: {prof.nrounds} rounds (= plan), wire "
+        f"{prof.wire_bytes():.0f} B (= executed_wire_bytes), A⁻¹ bitwise "
+        f"equal to the solve; replay {wall_s:.1f} s host clock")
+    for s in slow:
+        log(f"  round {s.rounds[0]}: {s.wall_us:.1f} us measured, "
+            f"{s.sim_us:.1f} us α-β model; {s.compute_ops} compute ops, "
+            f"{s.msgs} lanes, {s.wire_bytes:.0f} wire B")
+    log(f"  segments: init {prof.init_us:.1f} us + {len(prof.samples)} "
+        f"rounds {sum(s.wall_us for s in prof.samples) / 1e3:.2f} ms "
+        f"(with compute {sum(s.wall_us for s in comp) / 1e3:.2f} ms over "
+        f"{len(comp)}, pure comm {sum(s.wall_us for s in pure) / 1e3:.2f} "
+        f"ms over {len(pure)}) + final {prof.final_us:.1f} us = "
+        f"{seg_sum_ms:.2f} ms fenced, against the fused solve "
+        f"{state['solve_ms']:.2f} ms; α-β model total "
+        f"{prof.sim_us / 1e3:.3f} ms")
+    log(f"  inbound skew max/mean {sk['skew_ratio']:.3f} (PlanLint warns "
+        f"past {sk['static_warn_threshold']}: "
+        f"{'exceeded' if sk['exceeds_static_warn'] else 'ok'}); fitted "
+        f"α {alpha * 1e6:.2f} us, β {beta * 1e9:.4f} ns/B")
+    return dict(nrounds=prof.nrounds, wire_bytes=prof.wire_bytes(),
+                replay_s=wall_s, init_us=prof.init_us,
+                final_us=prof.final_us, segments_ms=seg_sum_ms,
+                fused_solve_ms=state["solve_ms"], sim_ms=prof.sim_us / 1e3,
+                compute_rounds_ms=sum(s.wall_us for s in comp) / 1e3,
+                compute_rounds=len(comp),
+                pure_comm_ms=sum(s.wall_us for s in pure) / 1e3,
+                pure_comm_rounds=len(pure),
+                slowest=[dict(round=s.rounds[0], wall_us=s.wall_us,
+                              sim_us=s.sim_us, compute_ops=s.compute_ops,
+                              msgs=s.msgs, wire_bytes=s.wire_bytes)
+                         for s in slow],
+                skew=sk, alpha_s=alpha, beta_s_per_byte=beta,
+                timeline=prof.timeline())
 
 
 # ---------------------------------------------------------------------------
@@ -956,7 +1240,65 @@ def serial_path(dev, blocks, max_supernode=96):
         f"{res['numpy']['factorize_s']:.2f} s + selinv "
         f"{res['numpy']['selinv_s']:.2f} s")
     res["split"] = serial_split(dev, A, bs, run)
+    res["trsm_stacks"] = serial_trsm_stacks(dev, A, bs)
     return res
+
+
+def serial_trsm_stacks(dev, A, bs):
+    """The serial path's trsm work as a whole: the stacked solves (one per
+    supernode with a non-empty struct) recorded from one ``cuda``
+    factorize, then run back to back through the kernel and through
+    ``torch.linalg.solve_triangular`` (CUDA events, mean of 5 passes, and
+    the profiler's device time), beside the bound summed over the
+    stacks. These launches come after the path's counts were read."""
+    import torch
+    from repro_torch.core.supernodal_lu import factorize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import trsm as tk
+
+    stacks, orig = [], ops.trsm
+
+    def record(b, u):
+        stacks.append((b.clone(), u.clone()))
+        return orig(b, u)
+
+    ops.trsm = record
+    try:
+        factorize(A, bs=bs, backend="cuda", device=dev, dtype=torch.float64)
+    finally:
+        ops.trsm = orig
+    torch.cuda.synchronize()
+
+    def kernel():
+        return [tk.trsm(b, u) for b, u in stacks]
+
+    def library():
+        return [torch.linalg.solve_triangular(u, b, upper=True, left=False)
+                for b, u in stacks]
+
+    err = max((x - y).abs().max().item()
+              for x, y in zip(kernel(), library()))
+    t_bytes = t_ops = bound = 0.0
+    for b, u in stacks:
+        m, k = b.shape
+        nbytes, nops = (2 * m * k + k * k) * b.element_size(), m * k * k
+        bound += _bound(nbytes, nops, "float64")[0]
+        t_bytes += nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops += nops / PEAK_FLOPS["float64"] * 1e3
+    rows = [b.shape[0] for b, _ in stacks]
+    out = dict(stacks=len(stacks), rows_min=min(rows), rows_max=max(rows),
+               k=stacks[0][1].shape[0], ms=timed_ms(kernel),
+               device_ms=device_ms(kernel), library_ms=timed_ms(library),
+               library_device_ms=device_ms(library), bound_ms=bound,
+               bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+               max_abs_err_vs_library=err)
+    log(f"serial trsm, all {len(stacks)} stacks ({min(rows)}-{max(rows)} "
+        f"rows x {out['k']}, f64): kernel {out['ms']:.3f} ms (device "
+        f"{out['device_ms']:.3f}), solve_triangular {out['library_ms']:.3f}"
+        f" ms (device {out['library_device_ms']:.3f}), bound {bound:.4f} ms "
+        f"(sum over the stacks; bytes {t_bytes:.4f}, operations "
+        f"{t_ops:.4f}), max|Δ| vs the library {err:.2e}")
+    return out
 
 
 def serial_split(dev, A, bs, run):
@@ -1123,14 +1465,22 @@ def main() -> int:
 
     rows = kernel_checks(dev)
     new_rows = trsm_checks(dev) + rmsnorm_checks(dev) + flash_checks(dev)
-    settings = [
-        main_path(dev, "fem3d_like(16,16,16,3)",
-                  lambda: sparse.fem3d_like_matrix(16, 16, 16, 3), 96,
-                  keep=True),
-        main_path(dev, "dg_like(32,32,16)",
-                  lambda: sparse.dg_like_matrix(32, 32, 16), 128),
-    ]
-    serial = serial_path(dev, settings[0].pop("_blocks"))
+    # phase 3, then 3b (the other executors) on each setting's prepared
+    # values, and 3c (the per-round replay) on the FEM setting
+    fem = main_path(dev, "fem3d_like(16,16,16,3)",
+                    lambda: sparse.fem3d_like_matrix(16, 16, 16, 3), 96)
+    fem["executors"] = executor_path(dev, fem["setting"], fem["_state"], 96,
+                                     batch=True)
+    fem["round_profile"] = profile_path(dev, fem["setting"], fem["_state"])
+    blocks = {k: fem["_state"][k] for k in ("A", "got", "ref")}
+    release(fem)
+    dg = main_path(dev, "dg_like(32,32,16)",
+                   lambda: sparse.dg_like_matrix(32, 32, 16), 128)
+    dg["executors"] = executor_path(dev, dg["setting"], dg["_state"], 128)
+    release(dg)
+    settings = [fem, dg]
+    serial = serial_path(dev, blocks)
+    del blocks
     batched_path(dev)
     ops = ops_path(dev)
     for r in rows + new_rows:    # ptxas's report of the instance each ran
@@ -1148,14 +1498,19 @@ def main() -> int:
     }
     # each kernel's launches by variant on its main path, from the plans
     # dicts as that path left them
-    variants = {"block_gemm": {s_["setting"]: s_["variants"]
-                               for s_ in settings},
+    variants = {"block_gemm": {
+                    **{s_["setting"]: s_["variants"] for s_ in settings},
+                    **{f"{s_['setting']} {ex}": r["variants"]
+                       for s_ in settings
+                       for ex, r in s_["executors"].items()}},
                 "trsm": {"serial": serial["backends"]["cuda"]["variants"],
                          "ops": ops["variants"]["trsm"]},
                 "rmsnorm": ops["variants"]["rmsnorm"],
                 "flash_attention": ops["variants"]["flash_attention"]}
     launches = {
         "block_gemm": sum(s_["launches"] for s_ in settings)
+        + sum(r["launches"] for s_ in settings
+              for r in s_["executors"].values())
         + serial["backends"]["cuda"]["launches"]["block_gemm"]
         + ops["launches"]["block_gemm"],
         "trsm": serial["backends"]["cuda"]["launches"]["trsm"]

@@ -4,13 +4,18 @@ PyTorch port (counterpart of ``repro/core/engine.py``).
     engine = PSelInvEngine.analyze(A_or_structure, b=8, grid=Grid(4, 2))
     out = engine.solve(A)                  # value-only hot path
 
-``analyze`` performs symbolic analysis → CommPlan IR → overlapped round
+``analyze`` performs symbolic analysis → CommPlan IR → the executor's
 schedule → PlanLint → per-rank index tables uploaded to the session's
 device **once**, and caches the session keyed on (block-structure hash,
 supernode width, grid, :class:`PlanOptions`, device). ``solve`` moves
 values only: the host numeric factorization (when given a matrix), one
 host→device copy of the value shards, and the sweep — no table copy and
-no read-back inside it.
+no read-back inside it. The options pick the executor, as in the JAX
+engine: the overlapped round schedule by default,
+``PlanOptions(overlap=False)`` the level-serial sweep,
+``PlanOptions(stream=True)`` the uniform round stream.
+``round_schedule``/``simulate`` give the α-β model's view of the
+session's schedule, ``profile_rounds`` a measured per-round replay.
 
 All ``P = pr·pc`` ranks of the grid run on the one device as a leading
 rank axis of every tensor (see ``pselinv_dist``); a batch of B
@@ -29,7 +34,8 @@ import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import ClassVar, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import (ClassVar, Dict, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -39,11 +45,15 @@ from ..obs.registry import REGISTRY
 from ..obs.trace import TRACER
 from .device import resolve_device
 from .plan import PlanOptions, peak_arena_blocks, ppermute_round_count
-from .pselinv_dist import (PSelInvProgram, SweepTables, analyze_structure,
-                           build_program, make_sweep_overlapped, pad_nb,
-                           prepare_values, prepare_values_many,
-                           upload_tables, validate_uniform_widths)
+from .pselinv_dist import (ExecTables, PSelInvProgram, StreamSweepTables,
+                           SweepTables, analyze_structure, build_program,
+                           make_sweep, make_sweep_overlapped,
+                           make_sweep_stream, pad_nb, prepare_values,
+                           prepare_values_many, upload_exec_tables,
+                           upload_stream_tables, upload_tables,
+                           validate_uniform_widths)
 from .schedule import Grid2D
+from .stream import COMP_GEMM, stream_shifts_per_round, stream_wire_bytes
 from .supernodal_lu import LUFactors, get_backend
 from .symbolic import BlockStructure
 
@@ -164,10 +174,13 @@ class PSelInvEngine:
     options: PlanOptions
     program: PSelInvProgram
     device: torch.device
-    tables: SweepTables
+    tables: Union[SweepTables, ExecTables, StreamSweepTables]
     key: Tuple = ()
     solve_calls: int = 0
     _table_bytes: Optional[int] = field(default=None, repr=False)
+    _overlap_tables: Optional[SweepTables] = field(default=None,
+                                                   repr=False)
+    _round_schedule: object = field(default=None, repr=False)
     _last_solve_us: Optional[float] = field(default=None, repr=False)
     _last_prepare_us: Optional[float] = field(default=None, repr=False)
 
@@ -195,20 +208,17 @@ class PSelInvEngine:
         ``verify`` overrides ``options.verify`` (the PlanLint mode);
         ``verify_compiled`` must stay ``"off"`` (HloLint is not ported).
 
-        Only the default overlapped executor is ported: options that
-        select the level-serial (``overlap=False``) or stream
-        (``stream=True``) executor raise."""
+        The options pick the executor whose tables are uploaded: the
+        overlapped round schedule (default), the level-serial sweep
+        (``overlap=False``) or the uniform round stream
+        (``stream=True``); ``stream=True`` with ``overlap=False`` raises
+        ``ValueError``, as in the JAX engine."""
         dev = resolve_device(device)
         if verify is not None:
             options = dataclasses.replace(options, verify=verify)
         if verify_compiled is not None:
             options = dataclasses.replace(options,
                                           verify_compiled=verify_compiled)
-        if not options.overlap or options.stream:
-            raise NotImplementedError(
-                "only the overlapped executor (PlanOptions(overlap=True, "
-                "stream=False)) is ported; the level-serial and stream "
-                "executors are not")
         with TRACER.span("engine.analyze", b=b,
                          grid=f"{grid.pr}x{grid.pc}") as sp:
             if isinstance(structure_or_A, BlockStructure):
@@ -235,7 +245,10 @@ class PSelInvEngine:
             program = build_program(bs, nb, b, grid.pr, grid.pc,
                                     options=options)
             with TRACER.span("analyze.upload"):
-                tables = upload_tables(program, dev)
+                upload = (upload_stream_tables if options.stream
+                          else upload_tables if options.overlap
+                          else upload_exec_tables)
+                tables = upload(program, dev)
             engine = cls(bs=bs, b=b, nb=nb, grid=grid, options=options,
                          program=program, device=dev, tables=tables,
                          key=key)
@@ -276,11 +289,31 @@ class PSelInvEngine:
 
     # ---- the sweep -----------------------------------------------------
     def sweep(self, batched: bool = False):
-        """The session's overlapped sweep over its device tables.
-        Single-matrix signature: (Lh, Dinv) each (P, nbr, nbc, b, b);
-        batched: (B, P, nbr, nbc, b, b)."""
-        return make_sweep_overlapped(self.program, self.tables,
-                                     batched=batched)
+        """The session's sweep (per its :class:`PlanOptions` executor)
+        over its device tables. Single-matrix signature: (Lh, Dinv) each
+        (P, nbr, nbc, b, b); batched: (B, P, nbr, nbc, b, b)."""
+        if self.options.stream:
+            mk = make_sweep_stream
+        elif self.options.overlap:
+            mk = make_sweep_overlapped
+        else:
+            mk = make_sweep
+        return mk(self.program, self.tables, batched=batched)
+
+    def overlap_tables(self) -> SweepTables:
+        """The overlapped schedule's device tables, which the profiling
+        replay runs: the session's own for an overlapped session,
+        uploaded once on first use for a stream session (its tables were
+        lowered from that schedule)."""
+        if self.program.overlap_plan is None:
+            raise ValueError(
+                "profile_rounds needs an overlapped schedule — analyze "
+                "with PlanOptions(overlap=True) (default) or stream=True")
+        if isinstance(self.tables, SweepTables):
+            return self.tables
+        if self._overlap_tables is None:
+            self._overlap_tables = upload_tables(self.program, self.device)
+        return self._overlap_tables
 
     # ---- the value-only hot path --------------------------------------
     def prepare_values(self, A, dtype: torch.dtype | None = None
@@ -381,21 +414,63 @@ class PSelInvEngine:
         return self._table_bytes
 
     def gemm_ops(self) -> int:
-        """Level-GEMM compute ops per solve — one kernel launch each."""
+        """Level-GEMM compute ops per solve — one kernel launch each: a
+        level each for the level-serial sweep, the GEMM compute slots of
+        the stream, the GEMM ops of the overlapped schedule."""
+        if self.options.stream:
+            return int((self.program.stream_tables.comp_kind
+                        == COMP_GEMM).sum())
+        if not self.options.overlap:
+            return len(self.program.exec_plan.levels)
         return sum(1 for ops in self.program.overlap_plan.compute_at
                    for op in ops if op.kind == "gemm")
+
+    # ---- plan introspection and the measured replay ----------------------
+    def round_schedule(self):
+        """The cached program's executed
+        :class:`~.simulator.RoundSchedule` (built once, then reused)."""
+        if self._round_schedule is None:
+            from .simulator import round_schedule_of
+            self._round_schedule = round_schedule_of(self.program)
+        return self._round_schedule
+
+    def simulate(self, model=None):
+        """α-β model timing of the session's schedule
+        (:func:`~.simulator.simulate_schedule` on :meth:`round_schedule`;
+        the default :class:`~.simulator.NetworkModel` is a Cray XC30, so
+        these are the model's times, not the card's)."""
+        from .simulator import simulate_schedule
+        return simulate_schedule(self.round_schedule(), model)
+
+    def profile_rounds(self, values, *, chunk: int = 1, reps: int = 3,
+                       dtype: torch.dtype = torch.float64, model=None):
+        """Measured per-round timeline of this session's overlapped
+        schedule: the sweep re-run as per-round segments, each fenced
+        with ``torch.cuda.synchronize()`` on the card, joined against the
+        plan's wire tables — residuals against the α-β model, the
+        per-rank inbound skew, and fitted α/β. Returns a
+        :class:`~repro_torch.obs.rounds.RoundProfile`; see
+        :func:`repro_torch.obs.rounds.profile_rounds` for the knobs. The
+        replay runs the fused sweep's own code, so its A⁻¹ is the
+        solve's, bit for bit."""
+        from ..obs.rounds import profile_rounds
+        return profile_rounds(self, values, chunk=chunk, reps=reps,
+                              dtype=dtype, model=model)
 
     def stats(self) -> Dict[str, float]:
         """Static schedule metrics of the cached program (ppermute round
         count, peak per-rank arena blocks), cache health, the solve
         counter, the last solve-dispatch and value-prep walls (µs), the
         GEMM ops per solve and the process-wide block-GEMM kernel launch
-        count. Every scalar is published to ``REGISTRY`` under
-        ``selinv_engine_*``."""
-        ov = self.program.overlap_plan
+        count. Stream sessions add their executed wire bytes per sweep
+        (``stream_wire_bytes``) and the mean gated comm slots per round
+        (``stream_shifts_per_round``). Every scalar is published to
+        ``REGISTRY`` under ``selinv_engine_*``."""
+        ex = (self.program.overlap_plan if self.options.overlap
+              else self.program.exec_plan)
         cls = type(self)
-        out = {"ppermute_rounds": ppermute_round_count(ov),
-               "peak_arena_blocks": peak_arena_blocks(ov),
+        out = {"ppermute_rounds": ppermute_round_count(ex),
+               "peak_arena_blocks": peak_arena_blocks(ex),
                "table_bytes": self.table_bytes(),
                "cache_engines": len(cls._cache),
                "cache_hits": cls.cache_hits,
@@ -406,6 +481,10 @@ class PSelInvEngine:
                "prepare_us": self._last_prepare_us,
                "gemm_ops_per_solve": self.gemm_ops(),
                "gemm_launches": _block_gemm.launches}
+        if self.options.stream:
+            st = self.program.stream_tables
+            out["stream_wire_bytes"] = stream_wire_bytes(st, self.b)
+            out["stream_shifts_per_round"] = stream_shifts_per_round(st)
         for k, v in out.items():
             if isinstance(v, (int, float)) and not isinstance(v, bool):
                 REGISTRY.gauge(f"selinv_engine_{k}",

@@ -1,7 +1,9 @@
 """The port on the card: each CUDA kernel (block GEMM, trsm, RMSNorm,
 flash attention) against its plain version, the engine's CUDA solve
-against its CPU solve, and the serial path's ``cuda`` backend against
-the numpy backend.
+against its CPU solve, the level-serial and stream executors against
+the overlapped one (one block-GEMM launch per planned GEMM), the
+profiling replay against the solve, and the serial path's ``cuda``
+backend against the numpy backend.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one; the file imports neither JAX nor the JAX package, so it runs on a
@@ -16,6 +18,8 @@ import torch
 from repro_torch.core import sparse
 from repro_torch.core import supernodal_lu as slu
 from repro_torch.core.engine import Grid, PSelInvEngine
+from repro_torch.core.plan import PlanOptions
+from repro_torch.core.pselinv_dist import make_sweep_stream
 from repro_torch.core.selinv import selected_inverse
 from repro_torch.kernels import block_gemm as bg
 from repro_torch.kernels import flash_attention as fa
@@ -416,3 +420,81 @@ def test_rmsnorm_two_pass_and_misaligned(cuda_device):
     assert not rk.plan(9, 5120, xm.dtype, xm.data_ptr() % 16 == 0).vec
     assert _close(rk.rmsnorm(xm, sm), rk.rmsnorm_plain(xm, sm),
                   torch.float32)
+
+
+# ---- the level-serial and stream executors and the profiling replay --------
+
+EXECUTORS = {"overlapped": PlanOptions(),
+             "level_serial": PlanOptions(overlap=False),
+             "stream": PlanOptions(stream=True)}
+
+
+def _executor_cases():
+    fem = sparse.fem3d_like_matrix(4, 4, 4, 2)[0]
+    return {
+        "lap": sparse.laplacian_2d(16, 8),
+        "fem": sparse.make_numeric(fem, symmetric_values=True),
+        "dg": sparse.make_numeric(sparse.dg_like_matrix(6, 6, 4)[0],
+                                  symmetric_values=True),
+    }
+
+
+@pytest.mark.parametrize("name", ["lap", "fem", "dg"])
+def test_executors_match_overlapped_on_the_card(cuda_device, name):
+    A = _executor_cases()[name]
+    engs = {ex: PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2), options=o)
+            for ex, o in EXECUTORS.items()}
+    vals = engs["overlapped"].prepare_values(A)
+    out = {}
+    for ex, eng in engs.items():
+        before = bg.launches
+        out[ex] = eng.solve(vals, dtype=torch.float64)
+        torch.cuda.synchronize()
+        assert bg.launches - before == eng.gemm_ops(), ex
+        assert out[ex].device.type == "cuda"
+    assert torch.equal(out["stream"], out["overlapped"])
+    diff = (out["level_serial"] - out["overlapped"]).abs().max().item()
+    print(f"{name}: level-serial vs overlapped max|Δ| {diff:.3e}")
+    assert diff <= 1e-12
+    for ex, o in EXECUTORS.items():
+        cpu = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2), options=o,
+                                    device="cpu")
+        ref = cpu.solve(A, dtype=torch.float64)
+        assert (out[ex].cpu() - ref).abs().max().item() <= 1e-12, ex
+        assert torch.equal(engs[ex].solve(vals, dtype=torch.float64),
+                           out[ex]), ex
+
+
+@pytest.mark.parametrize("executor", ["overlapped", "stream"])
+def test_profile_replay_equals_solve_on_the_card(cuda_device, executor):
+    A = _executor_cases()["fem"]
+    eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2),
+                                options=EXECUTORS[executor])
+    vals = eng.prepare_values(A)
+    ref = eng.solve(vals, dtype=torch.float64)
+    for chunk in (1, 4):
+        prof = eng.profile_rounds(vals, chunk=chunk, reps=2)
+        assert prof.ainv.device.type == "cuda"
+        assert torch.equal(prof.ainv, ref)
+        assert all(s.wall_us > 0 for s in prof.samples)
+
+
+@pytest.mark.parametrize("name", ["lap", "fem"])
+def test_stream_padded_levels_give_the_same_bits(cuda_device, name):
+    """The stream's level tables run NK-padded (as the JAX stream does)
+    and cut to each level's nk give the same bits: the level GEMM and the
+    diagonal einsum sum each output element in an order that does not
+    depend on nk."""
+    A = _executor_cases()[name]
+    eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2),
+                                options=EXECUTORS["stream"])
+    st = eng.program.stream_tables
+    assert any(len(k) < st.NK for k in st.level_Ks)   # padding happens
+    vals = eng.prepare_values(A, dtype=torch.float64)
+    real = make_sweep_stream(eng.program, eng.tables)(vals.Lh, vals.Dinv)
+    before = bg.launches
+    padded = make_sweep_stream(eng.program, eng.tables, padded=True)(
+        vals.Lh, vals.Dinv)
+    torch.cuda.synchronize()
+    assert bg.launches - before == eng.gemm_ops()
+    assert torch.equal(padded, real)
