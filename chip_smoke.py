@@ -24,12 +24,12 @@ on the card:
    in f32/bf16, causal and not, up to qwen3-32b's (1, 4096, 64, 128)
    (``F.scaled_dot_product_attention``);
 3. runs the main path — ``PSelInvEngine.analyze`` → ``prepare_values`` →
-   ``solve`` on grid 4×2 — on the FEM-like (audikw_1 stand-in) and
-   DG-like (DG_PNF14000 stand-in) matrices at full size, and checks the
-   selected blocks against a dense f64 inverse computed on the card,
-   bitwise-equal repeated solves, one kernel launch per planned GEMM op,
-   every f64 launch on the DMMA variant, and the f32 solve against the
-   f64 one;
+   the session's eager sweep on grid 4×2 — on the FEM-like (audikw_1
+   stand-in) and DG-like (DG_PNF14000 stand-in) matrices at full size,
+   and checks the selected blocks against a dense f64 inverse computed on
+   the card, bitwise-equal repeated solves, one kernel launch per planned
+   GEMM op, every f64 launch on the DMMA variant, and the f32 solve
+   against the f64 one;
 3b. runs the level-serial (``PlanOptions(overlap=False)``) and stream
    (``PlanOptions(stream=True)``) executors on the same prepared values:
    selected blocks against the dense inverse, the stream bitwise equal to
@@ -41,6 +41,11 @@ on the card:
    (``engine.profile_rounds``, each round fenced): the round count and
    wire bytes against the plan, the replay's A⁻¹ bitwise against the
    solve, the slowest rounds beside the α-β model, skew and fitted α/β;
+3d. solves through ``engine.solve`` on each setting and executor: the
+   single-matrix f64 class captured once as a CUDA graph, every replay
+   bitwise equal to the eager sweep, one block-GEMM node per planned GEMM
+   in the graph (all on the DMMA variant), eager and replayed solves
+   timed in turns, a replay traced for its busy share;
 4. runs the serial path — ``factorize`` + ``selinv`` with the ``cuda`` and
    ``torch`` backends in f64 — on the FEM matrix, against the dense
    inverse and the engine's solve, with one trsm launch per supernode
@@ -49,12 +54,19 @@ on the card:
    traced split of where the time goes, and all of the path's stacked trsm
    solves timed through the kernel and ``torch.linalg.solve_triangular``
    beside their summed bound;
-5. checks a bucketed ``solve_many`` against single solves, bitwise;
-6. drives the ``ops`` entry points through the port's kernel benchmark
+5. serves through ``SelInvServer`` on grid 4×2: (a) 16 full-size FEM
+   requests (phase 3's values for αᵢ·A) in bursts that coalesce into the
+   buckets 1, 2 and 4, each result bitwise its eager single solve and
+   within 1e-12·max|A⁻¹/αᵢ| of A⁻¹/αᵢ, one capture per bucket, latency,
+   occupancy and per-matrix times; (b) the traffic harness
+   (``serve.traffic.run_traffic``: 64 requests over 2 structures, f64);
+   (c) a request with a pattern outside its structure failing alone;
+6. checks a bucketed ``solve_many`` against single solves, bitwise;
+7. drives the ``ops`` entry points through the port's kernel benchmark
    (``repro_torch.kernels.bench``) and, for RMSNorm and flash attention,
    at qwen3-32b's widths in bf16, every output held against its plain
    version, every kernel launched and bf16 flash on the tensor cores;
-7. writes every measured row to ``build/chip_smoke.json`` and prints the
+8. writes every measured row to ``build/chip_smoke.json`` and prints the
    kernels' JSON line, the total wall time, the card line and, last, the
    result.
 
@@ -745,9 +757,10 @@ def main_path(dev, setting, make, b, grid=(4, 2)):
         f"{[round(x, 2) for x in prepare_s]})")
 
     # the main path's kernel launches: counts zeroed right before the
-    # first solve, read right after it
+    # first solve, read right after it (phases 3–3c run the eager sweep,
+    # launch by launch; phase 3d the same sweep as a CUDA-graph replay)
     zero_counts()
-    out = eng.solve(vals, dtype=torch.float64)
+    out = eager_solve(eng, vals, torch.float64)
     torch.cuda.synchronize()
     launches = read_counts()["block_gemm"]
     if launches != gemm_ops:
@@ -766,7 +779,7 @@ def main_path(dev, setting, make, b, grid=(4, 2)):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        again = eng.solve(vals, dtype=torch.float64)
+        again = eager_solve(eng, vals, torch.float64)
         e.record()
         torch.cuda.synchronize()
         solve_ms.append(s.elapsed_time(e))
@@ -778,8 +791,8 @@ def main_path(dev, setting, make, b, grid=(4, 2)):
     if not err <= 1e-10 * scale:
         raise AssertionError(f"{setting}: selected blocks max|Δ| {err:.3e}"
                              f" > 1e-10 · max|A⁻¹| {scale:.3e}")
-    prof = profile_solve(eng, vals)
-    out32 = eng.solve(vals, dtype=torch.float32)
+    prof = profile_solve(lambda: eager_solve(eng, vals, torch.float64))
+    out32 = eager_solve(eng, vals, torch.float32)
     torch.cuda.synchronize()
     rel32 = ((out32.double() - out).abs().max().item()
              / out.abs().max().item())
@@ -822,10 +835,20 @@ def release(res):
     torch.cuda.reset_peak_memory_stats()
 
 
-def profile_solve(eng, vals):
-    """Device time of one f64 solve by kernel class (torch.profiler),
-    against the solve's wall on CUDA events taken inside the traced
-    window: the busy share and where it goes."""
+def eager_solve(eng, vals, dtype):
+    """The session's eager sweep (``engine.sweep``) on ``vals`` cast to
+    ``dtype``: every kernel launched from Python, counted and timed as
+    in PR 15. ``engine.solve`` replays the same sweep from a CUDA graph
+    (phase 3d)."""
+    Lh, Dinv = (eng._as_tensor(v, dtype) for v in vals)
+    return eng.sweep(Lh.ndim == 6)(Lh, Dinv)
+
+
+def profile_solve(solve):
+    """Device time of one f64 solve (``solve()``) by kernel class
+    (torch.profiler), against the solve's wall on CUDA events taken
+    inside the traced window: the busy share and where it goes, and the
+    block-GEMM kernels the card ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -835,12 +858,13 @@ def profile_solve(eng, vals):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        eng.solve(vals, dtype=torch.float64)
+        solve()
         e.record()
         torch.cuda.synchronize()
     wall_us = s.elapsed_time(e) * 1e3
     classes = {}
     kernels = []
+    gemm_calls = 0
     for ev in p.key_averages():
         t = getattr(ev, "self_device_time_total", 0) or 0
         if t <= 0 or ev.key.startswith("aten::"):
@@ -848,6 +872,7 @@ def profile_solve(eng, vals):
         k = ev.key
         if "block_gemm_kernel" in k:
             c = "block_gemm (hand-written)"
+            gemm_calls += ev.count
         elif any(x in k for x in ("gemm", "Gemm", "cutlass", "xmma",
                                   "sm90", "cublas")):
             c = "cuBLAS (scomp einsum)"
@@ -863,7 +888,7 @@ def profile_solve(eng, vals):
     if busy <= 0:
         log("  profile: the profiler recorded no device time — breakdown "
             "not measured")
-        return {"wall_us": wall_us, "busy_us": None}
+        return {"wall_us": wall_us, "busy_us": None, "gemm_calls": None}
     log(f"  profile (one f64 solve, traced): wall {wall_us / 1e3:.1f} ms, "
         f"device busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f} %)")
     for c, t in sorted(classes.items(), key=lambda x: -x[1]):
@@ -871,6 +896,7 @@ def profile_solve(eng, vals):
     for t, cnt, k in sorted(kernels, reverse=True)[:6]:
         log(f"    top kernel {t / 1e3:.1f} ms x{cnt}: {k}")
     return {"wall_us": wall_us, "busy_us": busy, "classes_us": classes,
+            "gemm_calls": gemm_calls,
             "top_kernels": [dict(us=t, count=c, name=k)
                             for t, c, k in sorted(kernels, reverse=True)[:10]]}
 
@@ -906,19 +932,26 @@ def _events_ms(fn, reps=3):
     return times, out
 
 
-def batch_check(eng, vals, what):
-    """A bucketed batch of three value sets (the prepared values, and two
-    exact power-of-two rescalings of them) against the three single
-    solves, bitwise."""
-    import torch
+def value_sets(vals):
+    """The prepared values and two exact power-of-two rescalings."""
     from repro_torch.core.engine import SolveValues
-
-    sets = [vals, SolveValues(vals.Lh * 0.5, vals.Dinv),
+    return [vals, SolveValues(vals.Lh * 0.5, vals.Dinv),
             SolveValues(vals.Lh, vals.Dinv * 2.0)]
-    singles = [eng.solve(v, dtype=torch.float64) for v in sets]
-    batch = eng.solve(SolveValues(torch.stack([v.Lh for v in sets]),
-                                  torch.stack([v.Dinv for v in sets])),
-                      dtype=torch.float64, bucket=True)
+
+
+def batch_check(eng, vals, what):
+    """A batch of three value sets (:func:`value_sets`) padded with a zero
+    lane to the bucket of 4, as ``solve(bucket=True)`` pads it, through
+    the eager batched sweep, against the three eager single solves,
+    bitwise."""
+    import torch
+
+    sets = value_sets(vals)
+    singles = [eager_solve(eng, v, torch.float64) for v in sets]
+    Lh, Dinv = (torch.stack([getattr(v, f) for v in sets]
+                            + [torch.zeros_like(vals.Lh)])
+                for f in ("Lh", "Dinv"))
+    batch = eng.sweep(batched=True)(Lh, Dinv)[:3]
     torch.cuda.synchronize()
     for i, single in enumerate(singles):
         if not torch.equal(batch[i], single):
@@ -948,7 +981,8 @@ def padded_check(eng, vals, out, setting):
         f"bits as each level's own nk ({launches} GEMM launches)")
 
 
-def executor_path(dev, setting, state, b, grid=(4, 2), batch=False):
+def executor_path(dev, setting, state, b, grid=(4, 2), batch=False,
+                  captures=None):
     """Phase 3b: ``PlanOptions(overlap=False)`` and ``PlanOptions(
     stream=True)`` on the values phase 3 prepared (they do not depend on
     the executor): analyze s, solve ms (median of 3, CUDA events), one
@@ -960,7 +994,9 @@ def executor_path(dev, setting, state, b, grid=(4, 2), batch=False):
     with ``batch``, a bucketed batch of 3 bitwise equal to its single
     solves for each executor (the overlapped one too) and the NK-padded
     stream bitwise equal to the stream. Each executor's solve is traced
-    once for its device-busy breakdown."""
+    once for its device-busy breakdown. With ``captures`` (a dict), phase
+    3d runs on each executor, the overlapped one included, and fills it
+    by executor name."""
     import torch
     from repro_torch.core.engine import Grid, PSelInvEngine
     from repro_torch.core.simulator import executed_wire_bytes
@@ -972,6 +1008,9 @@ def executor_path(dev, setting, state, b, grid=(4, 2), batch=False):
     res = {}
     if batch:
         batch_check(state["eng"], vals, f"{setting} overlapped")
+    if captures is not None:
+        captures["overlapped"] = capture_path(setting, "overlapped",
+                                              state["eng"], vals, out_ov)
     for name in EXECUTORS:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -981,7 +1020,7 @@ def executor_path(dev, setting, state, b, grid=(4, 2), batch=False):
         analyze_s = time.perf_counter() - t0
         gemm_ops = eng.gemm_ops()
         zero_counts()
-        out = eng.solve(vals, dtype=torch.float64)
+        out = eager_solve(eng, vals, torch.float64)
         torch.cuda.synchronize()
         launches = read_counts()["block_gemm"]
         variants = {" ".join(map(str, k)): c for k, c in bg.plans.items()}
@@ -992,7 +1031,7 @@ def executor_path(dev, setting, state, b, grid=(4, 2), batch=False):
             raise AssertionError(f"{setting} {name}: the f64 solve ran "
                                  f"{variants}, not only the DMMA variant")
         solve_ms, again = _events_ms(
-            lambda: eng.solve(vals, dtype=torch.float64))
+            lambda: eager_solve(eng, vals, torch.float64))
         if not torch.equal(again, out):
             raise AssertionError(f"{setting} {name}: repeated solve differs")
         del again
@@ -1012,8 +1051,10 @@ def executor_path(dev, setting, state, b, grid=(4, 2), batch=False):
             batch_check(eng, vals, f"{setting} {name}")
         if batch and name == "stream":
             padded_check(eng, vals, out, setting)
+        if captures is not None:
+            captures[name] = capture_path(setting, name, eng, vals, out)
         log(f"{setting} {name}:")
-        prof = profile_solve(eng, vals)
+        prof = profile_solve(lambda: eager_solve(eng, vals, torch.float64))
         st = eng.stats()
         r = dict(analyze_s=analyze_s, solve_ms=solve_ms,
                  solve_ms_median=statistics.median(solve_ms),
@@ -1046,6 +1087,89 @@ def executor_path(dev, setting, state, b, grid=(4, 2), batch=False):
         del out, eng
         PSelInvEngine.clear_cache()
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: each executor's solve captured as a CUDA graph and replayed
+# ---------------------------------------------------------------------------
+
+def capture_path(setting, name, eng, vals, eager_out):
+    """Phase 3d: ``engine.solve`` of the single-matrix f64 class on phase
+    3's values. Its first call runs the sweep once eagerly (warm-up),
+    captures it as a CUDA graph and replays it; each later call copies
+    the values in, replays and copies A⁻¹ out. Fails unless every replay
+    is bitwise the eager sweep (``eager_out``), the wrapper launched the
+    block GEMM twice a planned GEMM (warm-up, capture) and no more, and
+    the graph holds one block-GEMM kernel node a planned GEMM (the
+    driver's view of the graph), each planned on the DMMA variant. Times
+    eager solves and replays in turns (median of 3 each, CUDA events) and
+    traces one replay for its busy share and the block-GEMM kernels the
+    profiler recorded."""
+    import torch
+
+    gemm_ops = eng.gemm_ops()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = eng.solve(vals, dtype=torch.float64)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts()["block_gemm"]
+    run = eng._fns[(False, 1, torch.float64)]
+    plans = {" ".join(map(str, k)): c for k, c in run.gemm_plans.items()}
+    what = f"{setting} {name} capture"
+    if not torch.equal(out, eager_out):
+        raise AssertionError(f"{what}: the replay differs from the eager "
+                             "sweep")
+    if (launches, run.gemm_launches, run.gemm_nodes) != (
+            2 * gemm_ops, gemm_ops, gemm_ops):
+        raise AssertionError(
+            f"{what}: {launches} wrapper launches (expected {2 * gemm_ops}"
+            f"), {run.gemm_launches} captured, {run.gemm_nodes} GEMM nodes "
+            f"in the graph; the plan has {gemm_ops} gemm ops")
+    if any(k[0] != "dmma_f64" for k in run.gemm_plans):
+        raise AssertionError(f"{what}: the graph's GEMMs are planned "
+                             f"{plans}, not only on the DMMA variant")
+    del out
+    eager_ms, replay_ms = [], []
+    for _ in range(3):      # in turns: eager, replay
+        t, e = _events_ms(lambda: eager_solve(eng, vals, torch.float64), 1)
+        eager_ms += t
+        del e
+        t, r = _events_ms(lambda: eng.solve(vals, dtype=torch.float64), 1)
+        replay_ms += t
+        if not torch.equal(r, eager_out):
+            raise AssertionError(f"{what}: a later replay differs")
+        del r
+    # the profiler's kernel records of a replay are a second lens only:
+    # in a replay of ~20k kernels (DG level-serial) it lost one GEMM's
+    # record, while the graph itself holds all of them (the census above)
+    log(f"{setting} {name} replay:")
+    prof = profile_solve(lambda: eng.solve(vals, dtype=torch.float64))
+    st = eng.stats()
+    r = dict(first_solve_s=first_s, warmup_ms=run.warmup_ms,
+             capture_ms=run.capture_ms, graph_kernels=run.graph_kernels,
+             graph_gemm_nodes=run.gemm_nodes, gemm_ops=gemm_ops,
+             launches=launches, plans=plans, eager_ms=eager_ms,
+             replay_ms=replay_ms,
+             eager_ms_median=statistics.median(eager_ms),
+             replay_ms_median=statistics.median(replay_ms),
+             graph_bytes=st["graph_bytes"],
+             graph_replays=st["graph_replays"], profile=prof)
+    busy = ("not measured" if prof["busy_us"] is None else
+            f"{100 * prof['busy_us'] / prof['wall_us']:.1f} %")
+    log(f"{setting} {name} capture: first solve {first_s:.2f} s (warm-up "
+        f"{run.warmup_ms:.0f} ms + capture {run.capture_ms:.0f} ms, host "
+        f"clock); graph {run.graph_kernels} kernel nodes, "
+        f"{run.gemm_nodes} block-GEMM nodes = {gemm_ops} gemm ops "
+        f"({plans}), traced replay ran {prof['gemm_calls']}; replay "
+        f"bitwise equal to the eager sweep; solve eager "
+        f"{r['eager_ms_median']:.1f} ms vs replay "
+        f"{r['replay_ms_median']:.1f} ms (medians of "
+        f"{[round(x, 1) for x in eager_ms]} / "
+        f"{[round(x, 1) for x in replay_ms]}, CUDA events, in turns); "
+        f"replay busy {busy}; graph memory {st['graph_bytes'] / 2**30:.2f}"
+        f" GiB")
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -1123,7 +1247,225 @@ def profile_path(dev, setting, state, reps=3):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: bucketed batch against single solves
+# phase 5: the server — structure-batched requests served by graph replay
+# ---------------------------------------------------------------------------
+
+# phase 5a's bursts of same-structure requests: each coalesces into one
+# batch, so the batches ride the buckets 4, 2 and 1 (FEM buckets stay ≤ 4);
+# the widest class is captured first, so the narrower ones carve their
+# temporaries out of its block of the session's graph pool
+SERVE_BURSTS = (4, 2, 1, 4, 4, 1)
+
+
+def serve_path(dev, setting, state, b, grid=(4, 2), bursts=SERVE_BURSTS,
+               seed=5):
+    """Phase 5a: ``SelInvServer`` on the FEM setting at full size. Each
+    request is phase 3's prepared values for αᵢ·A (αᵢ seeded in [0.5,
+    2)): L̂ is A's and D⁻¹ is D⁻¹/αᵢ, so no host prepare runs. The bursts
+    are submitted through ``submit_values`` to the background worker and
+    drained, one batch a burst, served by the (structure, bucket) graph
+    of a fresh session. Fails unless every result is bitwise the eager
+    single solve of its values and within 1e-12·max|A⁻¹/αᵢ| of
+    A⁻¹/αᵢ (phase 3's eager solve over αᵢ), and the session captured
+    once per bucket used. Reports latency percentiles, occupancy, the
+    served wall per matrix of each burst, one bucket-4 batch against one
+    single solve (CUDA events), and the graphs' memory."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import (Grid, PSelInvEngine, SolveValues,
+                                         stack_values)
+    from repro_torch.serve import BatchWindow, SelInvServer, ServeConfig
+
+    A, vals, ref = state["A"], state["vals"], state["out"]
+    state["eng"] = None             # phase 3's session and its graphs go
+    PSelInvEngine.clear_cache()
+    torch.cuda.empty_cache()
+    alphas = np.random.default_rng(seed).uniform(0.5, 2.0, sum(bursts))
+    scale = ref.abs().max().item()
+    cfg = ServeConfig(b=b, grid=Grid(*grid), dtype=torch.float64,
+                      window=BatchWindow(max_batch=4, max_wait_ms=1e6),
+                      device=str(dev))
+
+    def values(a):
+        return SolveValues(vals.Lh, vals.Dinv / a)
+
+    walls, results = [], []
+    with SelInvServer(cfg) as srv:
+        t0 = time.perf_counter()
+        eng = srv.engine_for(A)
+        analyze_s = time.perf_counter() - t0
+        zero_counts()
+        at = 0
+        for k in bursts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reqs = [srv.submit_values(eng, values(a))
+                    for a in alphas[at:at + k]]
+            srv.drain()
+            results += [r.result(timeout=600) for r in reqs]
+            walls.append(time.perf_counter() - t0)
+            at += k
+        launches = read_counts()["block_gemm"]
+        st = srv.stats()
+    (census,) = st["structures"].values()
+    want = sorted({1 << (k - 1).bit_length() for k in bursts})
+    if census["buckets_used"] != want or census["trace_count"] != len(want):
+        raise AssertionError(f"serve {setting}: {census} — expected one "
+                             f"capture per bucket of {want}")
+    if launches != 2 * len(want) * eng.gemm_ops():
+        raise AssertionError(f"serve {setting}: {launches} block-GEMM "
+                             f"wrapper launches, expected warm-up + capture"
+                             f" of {eng.gemm_ops()} for each of {want}")
+    worst = 0.0
+    for a, res in zip(alphas, results):
+        got = torch.from_numpy(res).to(dev)
+        if not torch.equal(got, eager_solve(eng, values(a), torch.float64)):
+            raise AssertionError(f"serve {setting}: the result for α={a} "
+                                 "differs from its eager single solve")
+        err = (got - ref / a).abs().max().item() / (scale / a)
+        if not err <= 1e-12:
+            raise AssertionError(f"serve {setting}: α={a}: max|Δ| from "
+                                 f"A⁻¹/α is {err:.3e}·max|A⁻¹/α|")
+        worst = max(worst, err)
+        del got
+    del results
+    four = stack_values([values(a) for a in alphas[:4]])
+    batch_ms, out4 = _events_ms(lambda: eng.solve(four, dtype=torch.float64,
+                                                  bucket=True))
+    # the server's one copy of a batch to the host, alone (host clock)
+    t0 = time.perf_counter()
+    host = out4.cpu().numpy()
+    d2h_s = time.perf_counter() - t0
+    d2h_gbs = host.nbytes / d2h_s / 1e9
+    del out4, four, host
+    eager_ms, out1 = _events_ms(lambda: eager_solve(eng, vals,
+                                                    torch.float64))
+    del out1
+    est = eng.stats()
+    per = {}
+    for k, w in zip(bursts, walls):
+        per.setdefault(k, []).append(w / k * 1e3)
+    r = dict(requests=len(alphas), bursts=list(bursts), analyze_s=analyze_s,
+             burst_wall_s=walls, served_ms_per_matrix=per,
+             batch4_replay_ms=batch_ms,
+             batch4_ms_per_matrix=statistics.median(batch_ms) / 4,
+             batch4_to_host_s=d2h_s, to_host_gb_per_s=d2h_gbs,
+             single_eager_ms=eager_ms,
+             latency_p50_us=st["latency_p50_us"],
+             latency_p95_us=st["latency_p95_us"],
+             latency_p99_us=st["latency_p99_us"],
+             occupancy=st["batch_occupancy_mean"],
+             batch_size_hist=st["batch_size_hist"], census=census,
+             launches=launches, graph_bytes=est["graph_bytes"],
+             graph_replays=est["graph_replays"], worst_err=worst)
+    log(f"serve {setting}: {len(alphas)} requests in bursts {list(bursts)} "
+        f"→ batches {st['batch_size_hist']}, buckets "
+        f"{census['buckets_used']}, {census['trace_count']} captures; "
+        f"every result bitwise its eager single solve, max|Δ| from A⁻¹/α "
+        f"{worst:.2e}·max|A⁻¹/α|; latency p50/p95/p99 "
+        f"{st['latency_p50_us'] / 1e3:.1f}/{st['latency_p95_us'] / 1e3:.1f}"
+        f"/{st['latency_p99_us'] / 1e3:.1f} ms, occupancy "
+        f"{st['batch_occupancy_mean']:.2f}; served wall per matrix by "
+        f"burst (host clock, with the copy to the host) "
+        + ", ".join(f"{k}: {[round(x, 1) for x in v]} ms"
+                    for k, v in per.items())
+        + f"; a bucket-4 replay {statistics.median(batch_ms):.1f} ms = "
+        f"{r['batch4_ms_per_matrix']:.1f} ms a matrix, against an eager "
+        f"single solve {statistics.median(eager_ms):.1f} ms (CUDA events, "
+        f"medians of 3); its copy to the host {d2h_s * 1e3:.0f} ms "
+        f"({d2h_gbs:.1f} GB/s, host clock)"
+        f"; {launches} block-GEMM wrapper launches (3 captures × 2 × "
+        f"{eng.gemm_ops()}); graph memory {est['graph_bytes'] / 2**30:.2f} "
+        f"GiB")
+    return r
+
+
+def traffic_path(dev, n_requests=64):
+    """Phase 5b: ``serve.traffic.run_traffic`` on the card at the
+    harness's sizes — a seeded Poisson stream over 2 Laplacian
+    structures, b=8, grid 4×2, f64 — which asserts one capture per
+    (structure, bucket) and every served result within 1e-12 of its
+    unbatched solve."""
+    import torch
+    from repro_torch.core.engine import Grid
+    from repro_torch.serve.traffic import run_traffic
+
+    zero_counts()
+    res = run_traffic(n_requests=n_requests, n_structures=2,
+                      rate_hz=4000.0, seed=0, b=8, grid=Grid(4, 2),
+                      dtype=torch.float64, device=dev, tol=1e-12)
+    res["launches"] = read_counts()["block_gemm"]
+    log(f"traffic: {n_requests} requests, 2 structures, grid 4x2, f64: "
+        f"captures per structure = buckets used {res['conformance']}; "
+        f"identity {res['identity_max_abs']:.2e}; served "
+        f"{res['serve_per_matrix_us']:.0f} us a matrix vs sequential "
+        f"{res['baseline_per_matrix_us']:.0f} us ({res['speedup']:.2f}x, "
+        f"host clock), p50/p95/p99 {res['serve_p50_us']:.0f}/"
+        f"{res['serve_p95_us']:.0f}/{res['serve_p99_us']:.0f} us, "
+        f"occupancy {res['serve_batch_occupancy']:.2f}, "
+        f"{res['batches']} batches")
+    return res
+
+
+def isolation_path(dev):
+    """Phase 5c: a request whose pattern escapes its structure (a
+    nonzero outside the analyzed blocks swapped onto the queued request)
+    fails alone; its three batch neighbours are bitwise the eager single
+    solves of their prepared values, and the server serves the next
+    window."""
+    import scipy.sparse as sp
+    import torch
+    from repro_torch.core import sparse
+    from repro_torch.core.engine import Grid, PSelInvEngine
+    from repro_torch.serve import (BatchWindow, RequestStatus, SelInvServer,
+                                   ServeConfig, ServeError)
+
+    PSelInvEngine.clear_cache()
+    srv = SelInvServer(ServeConfig(
+        b=8, grid=Grid(4, 2), dtype=torch.float64,
+        window=BatchWindow(max_batch=4, max_wait_ms=1e6), device=str(dev)))
+    A = sparse.laplacian_2d(12, 8)
+    eye = sp.identity(A.shape[0])
+    mats = [A + c * eye for c in (0.5, 1.5, 2.5)]
+    good = [srv.submit(M) for M in mats]
+    bad = srv.submit(A + eye)
+    E = sp.lil_matrix(A)
+    E[0, 95] = E[95, 0] = 1.0
+    bad.matrix = sp.csr_matrix(E)
+    srv.pump(force=True)
+    try:
+        bad.result()
+        raise AssertionError("isolation: the bad request returned a result")
+    except ServeError as e:
+        if "outside the analyzed block" not in str(e):
+            raise
+    eng = srv.engine_for(A)
+    vals = eng.prepare_values_many(mats)
+    for i, r in enumerate(good):
+        single = eager_solve(eng, (vals.Lh[i], vals.Dinv[i]), torch.float64)
+        if (r.status is not RequestStatus.SOLVED
+                or not torch.equal(torch.from_numpy(r.result()).to(dev),
+                                   single)):
+            raise AssertionError(f"isolation: neighbour {i} is {r.status} "
+                                 "or differs from its single solve")
+    nxt = srv.submit(A + 3.0 * eye)
+    srv.pump(force=True)
+    st = srv.stats()
+    if nxt.status is not RequestStatus.SOLVED or (st["failed"],
+                                                  st["solved"]) != (1, 4):
+        raise AssertionError(f"isolation: after the failure {nxt.status}, "
+                             f"{st['failed']} failed / {st['solved']} "
+                             "solved")
+    log(f"isolation: the bad-pattern request failed alone ({bad.error}); "
+        f"its 3 neighbours (one batch, bucket 4) bitwise their single "
+        f"solves; the next request solved")
+    PSelInvEngine.clear_cache()
+    return dict(failed=st["failed"], solved=st["solved"],
+                batches=st["batch_size_hist"])
+
+
+# ---------------------------------------------------------------------------
+# phase 6: bucketed batch against single solves
 # ---------------------------------------------------------------------------
 
 def batched_path(dev):
@@ -1153,7 +1495,7 @@ def batched_path(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the serial supernodal path (factorize + selinv) on the card
+# phase 4: the serial supernodal path (factorize + selinv) on the card
 # ---------------------------------------------------------------------------
 
 def serial_path(dev, blocks, max_supernode=96):
@@ -1351,7 +1693,7 @@ def serial_split(dev, A, bs, run):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the ops entry points, through the port's kernel benchmark
+# phase 7: the ops entry points, through the port's kernel benchmark
 # ---------------------------------------------------------------------------
 
 # the ops entry points at the widths of configs/qwen3_32b.py, as a
@@ -1465,22 +1807,29 @@ def main() -> int:
 
     rows = kernel_checks(dev)
     new_rows = trsm_checks(dev) + rmsnorm_checks(dev) + flash_checks(dev)
-    # phase 3, then 3b (the other executors) on each setting's prepared
-    # values, and 3c (the per-round replay) on the FEM setting
+    # phase 3, then 3b (the other executors) and 3d (each executor's
+    # solve as a CUDA-graph replay) on each setting's prepared values, 3c
+    # (the per-round replay) and 5a (the server) on the FEM setting
     fem = main_path(dev, "fem3d_like(16,16,16,3)",
                     lambda: sparse.fem3d_like_matrix(16, 16, 16, 3), 96)
+    fem["capture"] = {}
     fem["executors"] = executor_path(dev, fem["setting"], fem["_state"], 96,
-                                     batch=True)
+                                     batch=True, captures=fem["capture"])
     fem["round_profile"] = profile_path(dev, fem["setting"], fem["_state"])
+    fem["serve"] = serve_path(dev, fem["setting"], fem["_state"], 96)
     blocks = {k: fem["_state"][k] for k in ("A", "got", "ref")}
     release(fem)
     dg = main_path(dev, "dg_like(32,32,16)",
                    lambda: sparse.dg_like_matrix(32, 32, 16), 128)
-    dg["executors"] = executor_path(dev, dg["setting"], dg["_state"], 128)
+    dg["capture"] = {}
+    dg["executors"] = executor_path(dev, dg["setting"], dg["_state"], 128,
+                                    captures=dg["capture"])
     release(dg)
     settings = [fem, dg]
     serial = serial_path(dev, blocks)
     del blocks
+    serve = {"fem": fem["serve"], "traffic": traffic_path(dev),
+             "isolation": isolation_path(dev)}
     batched_path(dev)
     ops = ops_path(dev)
     for r in rows + new_rows:    # ptxas's report of the instance each ran
@@ -1502,7 +1851,10 @@ def main() -> int:
                     **{s_["setting"]: s_["variants"] for s_ in settings},
                     **{f"{s_['setting']} {ex}": r["variants"]
                        for s_ in settings
-                       for ex, r in s_["executors"].items()}},
+                       for ex, r in s_["executors"].items()},
+                **{f"{s_['setting']} {ex} graph": r["plans"]
+                   for s_ in settings
+                   for ex, r in s_["capture"].items()}},
                 "trsm": {"serial": serial["backends"]["cuda"]["variants"],
                          "ops": ops["variants"]["trsm"]},
                 "rmsnorm": ops["variants"]["rmsnorm"],
@@ -1511,7 +1863,10 @@ def main() -> int:
         "block_gemm": sum(s_["launches"] for s_ in settings)
         + sum(r["launches"] for s_ in settings
               for r in s_["executors"].values())
+        + sum(r["launches"] for s_ in settings
+              for r in s_["capture"].values())
         + serial["backends"]["cuda"]["launches"]["block_gemm"]
+        + serve["fem"]["launches"] + serve["traffic"]["launches"]
         + ops["launches"]["block_gemm"],
         "trsm": serial["backends"]["cuda"]["launches"]["trsm"]
         + ops["launches"]["trsm"],
@@ -1555,7 +1910,8 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "build_s": build_s,
          "wall_s": wall_s, "kernel_rows": rows, "new_kernel_rows": new_rows,
-         "main_path": settings, "serial": serial, "ops_path": ops,
+         "main_path": settings, "serial": serial, "serve": serve,
+         "ops_path": ops,
          "sass": sass, "ptxas": ptxas, "kernels": kernels}, indent=1,
         default=str))
     log(f"total wall {wall_s:.1f} s (host clock, build included)")

@@ -10,7 +10,11 @@ device **once**, and caches the session keyed on (block-structure hash,
 supernode width, grid, :class:`PlanOptions`, device). ``solve`` moves
 values only: the host numeric factorization (when given a matrix), one
 host→device copy of the value shards, and the sweep — no table copy and
-no read-back inside it. The options pick the executor, as in the JAX
+no read-back inside it. On the card each shape class of a solve —
+(batched, B, dtype) — is captured once as a CUDA graph
+(:mod:`.capture`; the counterpart of the JAX engine's one compile per
+class) and every later solve of the class is one replay; on the CPU the
+sweep runs eagerly. The options pick the executor, as in the JAX
 engine: the overlapped round schedule by default,
 ``PlanOptions(overlap=False)`` the level-serial sweep,
 ``PlanOptions(stream=True)`` the uniform round stream.
@@ -43,16 +47,17 @@ import torch
 from ..kernels import block_gemm as _block_gemm
 from ..obs.registry import REGISTRY
 from ..obs.trace import TRACER
+from .capture import GraphRunner, ReplayGate, capture, pool_bytes
 from .device import resolve_device
 from .plan import PlanOptions, peak_arena_blocks, ppermute_round_count
 from .pselinv_dist import (ExecTables, PSelInvProgram, StreamSweepTables,
                            SweepTables, analyze_structure, build_program,
                            make_sweep, make_sweep_overlapped,
                            make_sweep_stream, pad_nb, prepare_values,
-                           prepare_values_many, upload_exec_tables,
-                           upload_stream_tables, upload_tables,
-                           validate_uniform_widths)
-from .schedule import Grid2D
+                           moved_blocks, prepare_values_many,
+                           upload_exec_tables, upload_stream_tables,
+                           upload_tables, validate_uniform_widths)
+from .schedule import BYTES_PER_ELT, Grid2D
 from .stream import COMP_GEMM, stream_shifts_per_round, stream_wire_bytes
 from .supernodal_lu import LUFactors, get_backend
 from .symbolic import BlockStructure
@@ -176,7 +181,20 @@ class PSelInvEngine:
     device: torch.device
     tables: Union[SweepTables, ExecTables, StreamSweepTables]
     key: Tuple = ()
+    #: runner builds, one for each shape class (batched, B, dtype) the
+    #: session has solved: on the card each is a CUDA-graph capture, on
+    #: the CPU an eager sweep closure. The twin of the JAX engine's trace
+    #: counter (its "solve does not retrace" handle), kept under its name
+    #: so the serving layer ports line for line: flat on a warm class.
+    trace_count: int = 0
     solve_calls: int = 0
+    _fns: Dict[Tuple, object] = field(default_factory=dict, repr=False)
+    _compile_metrics: Dict[Tuple, Dict[str, object]] = \
+        field(default_factory=dict, repr=False)
+    _jit_lock: threading.RLock = field(default_factory=threading.RLock,
+                                       repr=False)
+    _pool: object = field(default=None, repr=False)
+    _gate: Optional[ReplayGate] = field(default=None, repr=False)
     _table_bytes: Optional[int] = field(default=None, repr=False)
     _overlap_tables: Optional[SweepTables] = field(default=None,
                                                    repr=False)
@@ -289,9 +307,11 @@ class PSelInvEngine:
 
     # ---- the sweep -----------------------------------------------------
     def sweep(self, batched: bool = False):
-        """The session's sweep (per its :class:`PlanOptions` executor)
-        over its device tables. Single-matrix signature: (Lh, Dinv) each
-        (P, nbr, nbc, b, b); batched: (B, P, nbr, nbc, b, b)."""
+        """The session's eager sweep (per its :class:`PlanOptions`
+        executor) over its device tables — what a runner captures, and
+        what ``profile_rounds`` and per-launch counts run. Single-matrix
+        signature: (Lh, Dinv) each (P, nbr, nbc, b, b); batched: (B, P,
+        nbr, nbc, b, b)."""
         if self.options.stream:
             mk = make_sweep_stream
         elif self.options.overlap:
@@ -299,6 +319,78 @@ class PSelInvEngine:
         else:
             mk = make_sweep
         return mk(self.program, self.tables, batched=batched)
+
+    # ---- one runner per shape class (batched, B, dtype) ---------------
+    def _class_shape(self, batched: bool, B: int) -> Tuple[int, ...]:
+        return ((int(B),) if batched else ()) + (
+            self.grid.size, self.nb // self.grid.pr,
+            self.nb // self.grid.pc, self.b, self.b)
+
+    def _build_runner(self, batched: bool, B: int, dtype: torch.dtype):
+        """A fresh runner for one shape class. On the card: the sweep
+        captured as a CUDA graph into the session's one graph memory pool
+        (every graph of the session replays through one gate, so their
+        shared temporaries never meet). On the CPU: the eager sweep, a
+        short batch padded with zero lanes."""
+        sweep = self.sweep(batched)
+        if self.device.type == "cuda":
+            with self._jit_lock:
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                    self._gate = ReplayGate(self._jit_lock)
+                with TRACER.span("engine.capture", batched=batched, B=B):
+                    return capture(sweep, self._class_shape(batched, B),
+                                   dtype, self.device, self._pool,
+                                   self._gate, batched)
+
+        def run(Lh, Dinv):
+            n = Lh.shape[0] if batched else 1
+            if n < B:
+                pad = Lh.new_zeros((B - n,) + tuple(Lh.shape[1:]))
+                return sweep(torch.cat([Lh, pad]),
+                             torch.cat([Dinv, pad]))[:n]
+            return sweep(Lh, Dinv)
+        return run
+
+    def _runner(self, batched: bool, B: int, dtype: torch.dtype):
+        """The shape class's runner, built (and counted in
+        ``trace_count``) on its first use, under the session's lock:
+        cached sessions are shared, so one builder per class."""
+        key = (batched, int(B) if batched else 1, dtype)
+        with self._jit_lock:
+            fn = self._fns.get(key)
+            if fn is None:
+                fn = self._build_runner(*key)
+                self._fns[key] = fn
+                self.trace_count += 1
+        return fn
+
+    def jitted(self, batched: bool = False):
+        """The session's sweep as one callable ``fn(Lh, Dinv)``: the
+        inputs' (B, dtype) picks the shape class, whose runner is built
+        on first use (one ``trace_count``) and reused after — on the card
+        a replay of the class's CUDA graph. Single-matrix signature:
+        (Lh, Dinv) each (P, nbr, nbc, b, b); batched: (B, P, nbr, nbc, b,
+        b), the tables shared by every lane."""
+        def fn(Lh, Dinv):
+            return self._runner(batched, Lh.shape[0] if batched else 1,
+                                Lh.dtype)(Lh, Dinv)
+        return fn
+
+    def aot_compile(self, batch_size: int = 1,
+                    dtype: torch.dtype = torch.float32, *,
+                    batched: bool = True):
+        """A fresh runner for one exact shape class, *uncounted* (the
+        ``trace_count`` handle never moves) and not kept by the session:
+        on the card the sweep captured as a CUDA graph over its own
+        static buffers, on the CPU the eager sweep. The counterpart of
+        the JAX engine's AOT-compiled executable, with one difference: a
+        CUDA graph cannot be serialized — it lives in this process, on
+        this device — so the serving layer's disk cache
+        (:mod:`repro_torch.serve.progcache`) persists the analyzed
+        program and captures anew after a restart."""
+        return self._build_runner(batched, int(batch_size) if batched
+                                  else 1, dtype)
 
     def overlap_tables(self) -> SweepTables:
         """The overlapped schedule's device tables, which the profiling
@@ -364,7 +456,12 @@ class PSelInvEngine:
 
         ``bucket=True`` pads a batched solve up to the next power-of-2
         bucket (:func:`bucket_size`) with zero-valued lanes and slices
-        the real results back out."""
+        the real results back out, so batches of 3 and 4 share one class.
+
+        The solve runs through its shape class's runner (:meth:`jitted`):
+        on the card one replay of the class's CUDA graph, captured on the
+        class's first solve; on the CPU the eager sweep. The result is a
+        tensor of its own, which no later solve overwrites."""
         if _is_matrix(values):
             values = self.prepare_values(values)
         Lh, Dinv = (self._as_tensor(v, dtype) for v in values)
@@ -372,21 +469,13 @@ class PSelInvEngine:
             raise ValueError(
                 f"values must be rank 5 (single) or rank 6 (leading "
                 f"batch axis), got shape {tuple(Lh.shape)}")
+        batched = Lh.ndim == 6
+        B = Lh.shape[0] if batched else 1
         self.solve_calls += 1
         t0 = time.perf_counter()
-        with TRACER.span("engine.solve",
-                         B=Lh.shape[0] if Lh.ndim == 6 else 1):
-            if Lh.ndim == 6 and bucket:
-                B = Lh.shape[0]
-                Bp = bucket_size(B)
-                if Bp != B:
-                    pad = Lh.new_zeros((Bp - B,) + tuple(Lh.shape[1:]))
-                    out = self.sweep(batched=True)(
-                        torch.cat([Lh, pad]), torch.cat([Dinv, pad]))[:B]
-                else:
-                    out = self.sweep(batched=True)(Lh, Dinv)
-            else:
-                out = self.sweep(batched=(Lh.ndim == 6))(Lh, Dinv)
+        with TRACER.span("engine.solve", B=B):
+            out = self._runner(batched, bucket_size(B) if batched and bucket
+                               else B, Lh.dtype)(Lh, Dinv)
         # dispatch wall, not device wall: the caller synchronizes
         self._last_solve_us = (time.perf_counter() - t0) * 1e6
         return out
@@ -443,32 +532,106 @@ class PSelInvEngine:
         return simulate_schedule(self.round_schedule(), model)
 
     def profile_rounds(self, values, *, chunk: int = 1, reps: int = 3,
-                       dtype: torch.dtype = torch.float64, model=None):
+                       dtype: torch.dtype = torch.float32, model=None):
         """Measured per-round timeline of this session's overlapped
         schedule: the sweep re-run as per-round segments, each fenced
         with ``torch.cuda.synchronize()`` on the card, joined against the
         plan's wire tables — residuals against the α-β model, the
         per-rank inbound skew, and fitted α/β. Returns a
         :class:`~repro_torch.obs.rounds.RoundProfile`; see
-        :func:`repro_torch.obs.rounds.profile_rounds` for the knobs. The
+        :func:`repro_torch.obs.rounds.profile_rounds` for the knobs;
+        ``dtype`` casts the values (f32 default, as the JAX engine). The
         replay runs the fused sweep's own code, so its A⁻¹ is the
-        solve's, bit for bit."""
+        solve's in the same dtype, bit for bit."""
         from ..obs.rounds import profile_rounds
         return profile_rounds(self, values, chunk=chunk, reps=reps,
                               dtype=dtype, model=model)
 
-    def stats(self) -> Dict[str, float]:
+    # ---- what the sweep moves, and the compile surface ----------------
+    def moved(self) -> Tuple[int, float]:
+        """(rounds, bytes) the session's sweep moves between ranks, read
+        off its device tables (:func:`~.pselinv_dist.moved_blocks`)
+        and priced at ``BYTES_PER_ELT`` an element like the plan's other
+        byte figures (an f32 solve moves half)."""
+        rounds, blocks = moved_blocks(self.tables)
+        return rounds, float(blocks) * self.b * self.b * BYTES_PER_ELT
+
+    def compile_stats(self, batched: bool = False,
+                      dtype: torch.dtype = torch.float32,
+                      batch_size: int = 1) -> Dict[str, object]:
+        """Build metrics of one shape class's runner, measured once and
+        cached: ``warmup_ms`` (the eager sweep run before capture) and
+        ``capture_ms`` (the capture and the graph's instantiation), both
+        host clock ending in a synchronize; ``graph_kernels`` (kernel
+        nodes one replay launches) and ``graph_gemm_nodes`` (those of the
+        hand-written block GEMM), from the driver's view of the graph;
+        ``comm_rounds`` and ``moved_bytes`` (:meth:`moved`). On the CPU
+        nothing is captured and the four capture figures are None. The
+        class's own runner is read when the session has one, else a
+        fresh uncounted one is built (``trace_count`` never moves).
+
+        The JAX engine's ``jaxpr_lines``, ``hlo_bytes`` and
+        ``collective_bytes`` have no twin here — there is no traced or
+        lowered program text, and the port's collectives are the moves
+        ``moved_bytes`` counts — so each is None."""
+        key = (batched, int(batch_size) if batched else 1, dtype)
+        with self._jit_lock:
+            m = self._compile_metrics.get(key)
+            if m is not None:
+                return m
+            r = self._fns.get(key)
+            if r is None:
+                r = self._build_runner(*key)
+            rounds, moved = self.moved()
+            cap = isinstance(r, GraphRunner)
+            m = {"warmup_ms": r.warmup_ms if cap else None,
+                 "capture_ms": r.capture_ms if cap else None,
+                 "graph_kernels": r.graph_kernels if cap else None,
+                 "graph_gemm_nodes": r.gemm_nodes if cap else None,
+                 "comm_rounds": rounds, "moved_bytes": moved,
+                 "jaxpr_lines": None, "hlo_bytes": None,
+                 "collective_bytes": None}
+            self._compile_metrics[key] = m
+        return m
+
+    def graph_bytes(self) -> int:
+        """Device bytes the session's graphs hold: its graph memory pool
+        (temporaries and outputs of every capture) and the static inputs
+        of its kept runners; 0 on the CPU."""
+        if self._pool is None:
+            return 0
+        with self._jit_lock:
+            static = sum(r.static_bytes for r in self._fns.values())
+            return pool_bytes(self._pool, self.device) + static
+
+    def stats(self, compile: bool = False) -> Dict[str, float]:
         """Static schedule metrics of the cached program (ppermute round
         count, peak per-rank arena blocks), cache health, the solve
-        counter, the last solve-dispatch and value-prep walls (µs), the
-        GEMM ops per solve and the process-wide block-GEMM kernel launch
-        count. Stream sessions add their executed wire bytes per sweep
-        (``stream_wire_bytes``) and the mean gated comm slots per round
-        (``stream_shifts_per_round``). Every scalar is published to
-        ``REGISTRY`` under ``selinv_engine_*``."""
+        counter, the last solve-dispatch and value-prep walls (µs) and
+        the GEMM ops per solve. ``moved_bytes`` is what the port's sweep
+        moves between ranks per solve (:meth:`moved`).
+
+        Launch counts: ``gemm_launches`` is the process-wide count of the
+        block-GEMM wrapper's launches from Python — eager sweeps, the
+        warm-up before each capture and the launches a capture records
+        — which a replay does not move; ``graph_replays`` counts this
+        session's replays, each of which runs every kernel of its graph
+        once. ``graph_bytes`` is :meth:`graph_bytes`.
+
+        Stream sessions add ``stream_wire_bytes`` — the bytes the JAX
+        stream program's gated permutes ship (every pair of an active
+        slot at its full width), kept for parity with the JAX engine and
+        not what this port moves — and the mean gated comm slots per
+        round (``stream_shifts_per_round``). ``compile=True`` merges
+        :meth:`compile_stats` of the f32 single-matrix class, as the JAX
+        engine does. Every scalar is published to ``REGISTRY`` under
+        ``selinv_engine_*``."""
         ex = (self.program.overlap_plan if self.options.overlap
               else self.program.exec_plan)
         cls = type(self)
+        with self._jit_lock:
+            replays = sum(r.replays for r in self._fns.values()
+                          if isinstance(r, GraphRunner))
         out = {"ppermute_rounds": ppermute_round_count(ex),
                "peak_arena_blocks": peak_arena_blocks(ex),
                "table_bytes": self.table_bytes(),
@@ -480,11 +643,16 @@ class PSelInvEngine:
                "last_solve_us": self._last_solve_us,
                "prepare_us": self._last_prepare_us,
                "gemm_ops_per_solve": self.gemm_ops(),
-               "gemm_launches": _block_gemm.launches}
+               "gemm_launches": _block_gemm.launches,
+               "graph_replays": replays,
+               "graph_bytes": self.graph_bytes(),
+               "moved_bytes": self.moved()[1]}
         if self.options.stream:
             st = self.program.stream_tables
             out["stream_wire_bytes"] = stream_wire_bytes(st, self.b)
             out["stream_shifts_per_round"] = stream_shifts_per_round(st)
+        if compile:
+            out.update(self.compile_stats())
         for k, v in out.items():
             if isinstance(v, (int, float)) and not isinstance(v, bool):
                 REGISTRY.gauge(f"selinv_engine_{k}",

@@ -79,6 +79,7 @@ __all__ = ["PSelInvProgram", "build_program", "SweepTables",
            "make_sweep_segments",
            "validate_uniform_widths", "pad_nb", "analyze_structure",
            "check_values_pattern", "prepare_values", "prepare_values_many",
+           "moved_blocks",
            "gather_blocks"]
 
 
@@ -658,6 +659,35 @@ def upload_stream_tables(prog: PSelInvProgram,
     _count_bytes(tabs, [tabs, *levels, *padded,
                         *[x for x in local + comm if x is not None]])
     return tabs
+
+
+def moved_blocks(tables) -> Tuple[int, int]:
+    """(rounds, blocks) a sweep over ``tables`` moves between ranks, read
+    off the uploaded tables — what the port's executors ship, not what
+    the plan or the JAX program would: the overlapped sweep moves every
+    (src, dst) pair of a round at the round's lane width; the
+    level-serial sweep one block per real pair of each comm phase's
+    rounds (owner-local moves excluded); the stream, per active comm
+    slot, only the pairs whose receiver keeps that slot, at the slot's
+    width. A round counts when it moves a block."""
+    rounds = blocks = 0
+    if isinstance(tables, ExecTables):
+        for lv in tables.levels:
+            for ph in (lv.xfer_in, lv.bcast, lv.reduce, lv.xfer_out,
+                       lv.diag_reduce):
+                for g, _ in ph.pairs:
+                    rounds += g.numel() > 0
+                    blocks += g.numel()
+        return rounds, blocks
+    stream = isinstance(tables, StreamSweepTables)
+    for ln in tables.comm:
+        if ln is None:
+            continue
+        n = (sum(src.numel() * w for src, _, w in ln.slots) if stream
+             else ln.src.numel() * ln.width)
+        rounds += n > 0
+        blocks += n
+    return rounds, blocks
 
 
 # ---------------------------------------------------------------------------

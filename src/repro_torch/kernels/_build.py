@@ -21,7 +21,8 @@ from typing import Dict, Sequence
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "nvcc_path", "build", "load", "launch"]
+__all__ = ["CSRC", "BUILD_DIR", "nvcc_path", "build", "load", "launch",
+           "source_digest"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -49,6 +50,16 @@ def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def source_digest() -> str:
+    """sha1 over every kernel source and the nvcc flags: what a built
+    kernel depends on in the checkout."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
 
 
 def build(names: Sequence[str]) -> Dict[str, Path]:

@@ -218,7 +218,7 @@ def _chunk_boundaries(nrounds: int, chunk: int) -> List[int]:
 
 
 def profile_rounds(engine, values, *, chunk: int = 1, reps: int = 3,
-                   dtype: torch.dtype = torch.float64,
+                   dtype: torch.dtype = torch.float32,
                    model: Optional[NetworkModel] = None) -> RoundProfile:
     """Measure one sweep per executed round. ``engine`` is a
     :class:`~repro_torch.core.engine.PSelInvEngine` with an overlapped

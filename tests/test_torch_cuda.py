@@ -2,8 +2,9 @@
 flash attention) against its plain version, the engine's CUDA solve
 against its CPU solve, the level-serial and stream executors against
 the overlapped one (one block-GEMM launch per planned GEMM), the
-profiling replay against the solve, and the serial path's ``cuda``
-backend against the numpy backend.
+profiling replay against the solve, the serial path's ``cuda``
+backend against the numpy backend, and the CUDA-graph runners and the
+server on them against the eager sweep.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one; the file imports neither JAX nor the JAX package, so it runs on a
@@ -17,7 +18,8 @@ import torch
 
 from repro_torch.core import sparse
 from repro_torch.core import supernodal_lu as slu
-from repro_torch.core.engine import Grid, PSelInvEngine
+from repro_torch.core.engine import (Grid, PSelInvEngine, SolveValues,
+                                     stack_values)
 from repro_torch.core.plan import PlanOptions
 from repro_torch.core.pselinv_dist import make_sweep_stream
 from repro_torch.core.selinv import selected_inverse
@@ -84,10 +86,15 @@ def test_engine_cuda_matches_cpu(cuda_device):
     before = bg.launches
     out = gpu.solve(A, dtype=torch.float64)
     torch.cuda.synchronize()
-    assert bg.launches - before == gpu.gemm_ops()
+    # the class's first solve runs the sweep eagerly (warm-up), records
+    # it into a CUDA graph (capture) and replays it; later solves replay
+    assert bg.launches - before == 2 * gpu.gemm_ops()
     assert out.device.type == "cuda"
     assert (out.cpu() - ref).abs().max().item() <= 1e-12
+    before = bg.launches
     assert torch.equal(gpu.solve(A, dtype=torch.float64), out)
+    assert bg.launches == before
+    assert gpu.stats()["graph_replays"] == 2
 
 
 def test_f32_sweep_refuses_tf32(cuda_device):
@@ -448,7 +455,7 @@ def test_executors_match_overlapped_on_the_card(cuda_device, name):
     out = {}
     for ex, eng in engs.items():
         before = bg.launches
-        out[ex] = eng.solve(vals, dtype=torch.float64)
+        out[ex] = eng.sweep()(vals.Lh, vals.Dinv)        # eager: launches
         torch.cuda.synchronize()
         assert bg.launches - before == eng.gemm_ops(), ex
         assert out[ex].device.type == "cuda"
@@ -473,7 +480,8 @@ def test_profile_replay_equals_solve_on_the_card(cuda_device, executor):
     vals = eng.prepare_values(A)
     ref = eng.solve(vals, dtype=torch.float64)
     for chunk in (1, 4):
-        prof = eng.profile_rounds(vals, chunk=chunk, reps=2)
+        prof = eng.profile_rounds(vals, chunk=chunk, reps=2,
+                                  dtype=torch.float64)
         assert prof.ainv.device.type == "cuda"
         assert torch.equal(prof.ainv, ref)
         assert all(s.wall_us > 0 for s in prof.samples)
@@ -498,3 +506,110 @@ def test_stream_padded_levels_give_the_same_bits(cuda_device, name):
     torch.cuda.synchronize()
     assert bg.launches - before == eng.gemm_ops()
     assert torch.equal(padded, real)
+
+
+# ---- CUDA-graph capture, and the server on it ------------------------------
+
+def _value_sets(vals):
+    """Three value sets: the prepared values and two exact power-of-two
+    rescalings of them."""
+    return [vals, SolveValues(vals.Lh * 0.5, vals.Dinv),
+            SolveValues(vals.Lh, vals.Dinv * 2.0)]
+
+
+@pytest.mark.parametrize("executor", list(EXECUTORS))
+def test_replay_is_bitwise_the_eager_sweep(cuda_device, executor):
+    """A solve replays its class's CUDA graph: bitwise the eager sweep,
+    single and in a batch of 3 bucketed to 4, with one block-GEMM node
+    a planned GEMM in the graph, all on the DMMA variant."""
+    A = _executor_cases()["fem"]
+    PSelInvEngine.clear_cache()
+    eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2),
+                                options=EXECUTORS[executor])
+    sets = _value_sets(eng.prepare_values(A))
+    eager = [eng.sweep()(v.Lh, v.Dinv) for v in sets]
+    assert torch.equal(eng.solve(sets[0], dtype=torch.float64), eager[0])
+    run = eng._fns[(False, 1, torch.float64)]
+    assert run.gemm_nodes == run.gemm_launches == eng.gemm_ops()
+    assert {k[0] for k in run.gemm_plans} == {"dmma_f64"}
+    assert run.graph_kernels > run.gemm_nodes
+    batch = eng.solve(stack_values(sets), dtype=torch.float64, bucket=True)
+    assert batch.shape[0] == 3
+    for i, e in enumerate(eager):
+        assert torch.equal(batch[i], e), i
+    assert eng.trace_count == 2
+
+
+def test_one_capture_per_class(cuda_device):
+    """Repeated solves of a class replay its one graph: ``trace_count``
+    counts captures, ``graph_replays`` replays; Python-side launch
+    counts move only at a capture; measuring a class's compile stats
+    captures uncounted."""
+    A = _executor_cases()["lap"]
+    PSelInvEngine.clear_cache()
+    eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2))
+    v = eng.prepare_values(A)
+    outs = [eng.solve(v, dtype=torch.float64) for _ in range(3)]
+    assert eng.trace_count == 1
+    before = bg.launches
+    sets = _value_sets(v)
+    eng.solve(stack_values(sets), dtype=torch.float64, bucket=True)
+    eng.solve(stack_values(sets + sets[:1]), dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert eng.trace_count == 2                   # B=3 rides B=4
+    assert bg.launches - before == 2 * eng.gemm_ops()
+    st = eng.stats(compile=True)
+    assert eng.trace_count == 2
+    assert st["graph_replays"] == 5 and st["graph_bytes"] > 0
+    assert st["capture_ms"] > 0 and st["warmup_ms"] > 0
+    assert st["graph_gemm_nodes"] == eng.gemm_ops()
+    assert st["graph_kernels"] > st["graph_gemm_nodes"]
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+def test_returned_result_survives_the_next_replay(cuda_device):
+    A = _executor_cases()["fem"]
+    PSelInvEngine.clear_cache()
+    eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2))
+    v1, v2, _ = _value_sets(eng.prepare_values(A))
+    out1 = eng.solve(v1, dtype=torch.float64)
+    out2 = eng.solve(v2, dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, eng.sweep()(v1.Lh, v1.Dinv))
+    assert torch.equal(out2, eng.sweep()(v2.Lh, v2.Dinv))
+    assert not torch.equal(out1, out2)
+
+
+def test_server_through_graphs_matches_eager_bitwise(cuda_device):
+    """The background worker serves value and matrix requests through
+    the (structure, bucket) graphs while the caller's thread solves on
+    the same session: every result is bitwise the eager sweep of its
+    values, and each bucket was captured once."""
+    import scipy.sparse as sp
+    from repro_torch.serve import BatchWindow, SelInvServer, ServeConfig
+    A = _executor_cases()["fem"]
+    PSelInvEngine.clear_cache()
+    cfg = ServeConfig(b=8, grid=Grid(4, 2), dtype=torch.float64,
+                      window=BatchWindow(max_batch=4, max_wait_ms=1e6))
+    with SelInvServer(cfg) as srv:
+        eng = srv.engine_for(A)
+        sets = _value_sets(eng.prepare_values(A))
+        reqs = [srv.submit_values(eng, v) for v in sets]
+        mine = [eng.solve(sets[0], dtype=torch.float64) for _ in range(3)]
+        srv.drain()
+        I = sp.identity(A.shape[0])
+        mats = [A + c * I for c in (0.5, 1.5)]
+        mreqs = [srv.submit(M) for M in mats]
+        srv.drain()
+        eager = [eng.sweep()(v.Lh, v.Dinv).cpu().numpy() for v in sets]
+        for r, e in zip(reqs, eager):
+            assert np.array_equal(r.result(timeout=60), e)
+        mv = eng.prepare_values_many(mats)
+        for i, r in enumerate(mreqs):
+            e = eng.sweep()(mv.Lh[i], mv.Dinv[i]).cpu().numpy()
+            assert np.array_equal(r.result(timeout=60), e), i
+        assert all(np.array_equal(m.cpu().numpy(), eager[0]) for m in mine)
+        st = srv.stats()
+    (s,) = st["structures"].values()
+    assert s["buckets_used"] == [2, 4]
+    assert eng.trace_count == 3             # buckets 4 and 2, and B=1

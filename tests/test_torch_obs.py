@@ -147,7 +147,7 @@ def test_profile_rounds_conformance():
     eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2), device="cpu")
     vals = eng.prepare_values(A)
     ref = eng.solve(vals, dtype=torch.float64)
-    prof = eng.profile_rounds(vals, reps=1)
+    prof = eng.profile_rounds(vals, reps=1, dtype=torch.float64)
     ov = eng.program.overlap_plan
     assert isinstance(prof, RoundProfile)
 
@@ -178,7 +178,8 @@ def test_profile_rounds_conformance():
     alpha, beta = prof.fit_alpha_beta()
     assert alpha >= 0 and beta >= 0
     # (7) chunked replay: same coverage, same wire accounting
-    prof4 = eng.profile_rounds(vals, chunk=4, reps=1)
+    prof4 = eng.profile_rounds(vals, chunk=4, reps=1,
+                              dtype=torch.float64)
     assert [r for s in prof4.samples for r in s.rounds] == list(range(28))
     assert prof4.wire_bytes() == 177152
     assert torch.equal(prof4.ainv, ref)
@@ -195,7 +196,8 @@ def test_profile_rounds_of_a_stream_session():
     vals = eng.prepare_values(A)
     ref = eng.solve(vals, dtype=torch.float64)
     slow = NetworkModel(alpha_intra=2e-6, alpha_inter=8e-6)
-    prof = profile_rounds(eng, (vals.Lh, vals.Dinv), reps=1, model=slow)
+    prof = profile_rounds(eng, (vals.Lh, vals.Dinv), reps=1, model=slow,
+                          dtype=torch.float64)
     assert prof.nrounds == 28 and torch.equal(prof.ainv, ref)
     base = eng.profile_rounds(vals, reps=1)
     assert prof.sim_us > base.sim_us
