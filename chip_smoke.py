@@ -66,12 +66,23 @@ on the card:
    (``repro_torch.kernels.bench``) and, for RMSNorm and flash attention,
    at qwen3-32b's widths in bf16, every output held against its plain
    version, every kernel launched and bf16 flash on the tensor cores;
-8. writes every measured row to ``build/chip_smoke.json`` and prints the
+8. right after phase 3 on FEM, runs its f64 solve by 8 rank processes on
+   the one card (``comm.p2p.spawn``, gloo, CUDA payloads staged through
+   pinned host memory; kernels built in this process first): every rank
+   analyzes, takes its prepared shards from a temporary directory and
+   runs the ranked overlapped sweep three times barrier to barrier; each
+   rank's A⁻¹ shard against phase 3's (sha1, else max|Δ| within
+   1e-12·max|A⁻¹| with the differing op isolated), 35 block-GEMM launches
+   a rank a solve on the DMMA variant, the sent bytes against the
+   session's moved bytes, time in rounds against the rest; then
+   ``subset_broadcast``, ``subset_reduce`` and ``tree_allreduce`` on
+   64 MiB of integer-valued f32 a rank, exact, with wall and GB/s;
+9. writes every measured row to ``build/chip_smoke.json`` and prints the
    kernels' JSON line, the total wall time, the card line and, last, the
    result.
 
 Every launch count is zeroed right before its path runs and read right
-after it. Every failed check raises and the script exits non-zero; without a CUDA
+after it (in each rank process for phase 8). Every failed check raises and the script exits non-zero; without a CUDA
 device, or outside a checkout, it exits non-zero before printing any
 result. Numbers from this script are the only ones quoted for the port.
 """
@@ -86,6 +97,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# when this module was imported: in a phase-8 rank process, its start
+_IMPORTED = time.time()
 OUT_DIR = ROOT / "build"
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W): memory
@@ -1495,6 +1508,319 @@ def batched_path(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the multi-rank sweep — 8 rank processes on the one card
+# ---------------------------------------------------------------------------
+
+# the tree collectives' payload per rank: 64 MiB of f32
+COLL_NUMEL = 16 << 20
+MEMBERS = [1, 3, 4, 6]
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _sha1(t):
+    import hashlib
+    return hashlib.sha1(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _collective(dev, name, fn, x, expect):
+    """One tree collective on every rank, barrier to barrier after one
+    warm-up call (which allocates the pinned buffers): host wall ending
+    in a synchronize, exactness against ``expect`` (or None: this rank's
+    result is working state), and what this rank sent."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.comm import p2p
+
+    fn(x)
+    dist.barrier()
+    _sync(dev)
+    p2p.LOG.clear()
+    t0 = time.perf_counter()
+    y = fn(x)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    dist.barrier()
+    exact = True if expect is None else bool(torch.equal(y, expect))
+    return dict(name=name, wall_s=wall, exact=exact,
+                sent=p2p.LOG.sent(), received=p2p.LOG.received(),
+                staged=p2p.LOG.staged_bytes)
+
+
+def rank_main(rank, A, b, grid, tmp, hashes, reps, coll_numel, device,
+              t_spawn):
+    """One rank of phase 8, in its own process: analyze (every rank;
+    deterministic), this rank's view of the overlapped tables, its value
+    shards from ``tmp``; then ``reps`` ranked f64 solves barrier to
+    barrier (host clock ending in a synchronize), each with its launch
+    counts and send log zeroed right before it; the result's sha1 against
+    the single-process shard's (``hashes``; a differing shard is saved to
+    ``tmp`` for the parent); then the tree collectives on a
+    ``coll_numel``-element f32 tensor of integer values. ``stamps`` are
+    wall-clock seconds since the parent spawned (``t_spawn``), at each
+    stage's end."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.comm import (p2p, subset_broadcast, subset_reduce,
+                                  tree_allreduce)
+    from repro_torch.core.pselinv_dist import (analyze_structure,
+                                               build_program,
+                                               make_sweep_overlapped_ranked,
+                                               rank_tables, upload_tables)
+    from repro_torch.core.trees import TreeKind, build_tree
+    from repro_torch.kernels import block_gemm as bg
+
+    stamps = {"process": _IMPORTED - t_spawn,
+              "started": time.time() - t_spawn}
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.zeros(1, device=dev)
+    else:
+        torch.set_num_threads(1)
+    stamps["device"] = time.time() - t_spawn
+    t0 = time.perf_counter()
+    bs, nb = analyze_structure(A, b, *grid)
+    prog = build_program(bs, nb, b, *grid, overlap=True)
+    tabs = rank_tables(upload_tables(prog, "cpu"), rank, dev)
+    sweep = make_sweep_overlapped_ranked(prog, tabs, rank)
+    analyze_s = time.perf_counter() - t0
+    stamps["analyzed"] = time.time() - t_spawn
+    Lh = torch.from_numpy(np.load(tmp / f"lh{rank}.npy")).to(dev)
+    Dinv = torch.from_numpy(np.load(tmp / f"dinv{rank}.npy")).to(dev)
+    stamps["loaded"] = time.time() - t_spawn
+    sweep(Lh, Dinv)                      # warm-up: cuBLAS, pinned buffers
+    _sync(dev)
+    stamps["warm"] = time.time() - t_spawn
+    runs = []
+    for _ in range(reps):
+        dist.barrier()
+        _sync(dev)
+        p2p.LOG.clear()
+        bg.launches = 0
+        bg.plans.clear()
+        t1 = time.perf_counter()
+        out = sweep(Lh, Dinv)
+        _sync(dev)
+        t2 = time.perf_counter()
+        dist.barrier()
+        t3 = time.perf_counter()
+        runs.append(dict(
+            wall_s=t2 - t1, barrier_s=t3 - t1, rounds_s=p2p.LOG.wait_s,
+            sync_s=p2p.LOG.sync_s,
+            launches=bg.launches,
+            variants=sorted({k[0] for k in bg.plans}),
+            sent=p2p.LOG.sent(), received=p2p.LOG.received(),
+            staged=p2p.LOG.staged_bytes))
+    stamps["solved"] = time.time() - t_spawn
+    digest = _sha1(out)
+    if digest != hashes[rank]:
+        np.save(tmp / f"out{rank}.npy", out.cpu().numpy())
+    del out, Lh, Dinv
+
+    base = torch.arange(coll_numel, device=dev) % 1024
+    x = (base + rank).float()
+    P = grid[0] * grid[1]
+    everyone = build_tree(TreeKind.SHIFTED, 2,
+                          [r for r in range(P) if r != 2], tag=13)
+    coll = [
+        _collective(dev, "subset_broadcast", lambda v: subset_broadcast(
+            v, None, 3, MEMBERS, TreeKind.SHIFTED, tag=7), x,
+            (base + (3 if rank in MEMBERS else rank)).float()),
+        _collective(dev, "subset_reduce", lambda v: subset_reduce(
+            v, None, 4, MEMBERS, TreeKind.BINARY), x,
+            (base * len(MEMBERS) + sum(MEMBERS)).float() if rank == 4
+            else None),
+        _collective(dev, "tree_allreduce",
+                    lambda v: tree_allreduce(v, None, everyone), x,
+                    (base * P + P * (P - 1) // 2).float()),
+    ]
+    stamps["collectives"] = time.time() - t_spawn
+    return dict(rank=rank, analyze_s=analyze_s, runs=runs, sha1=digest,
+                bitwise=digest == hashes[rank], collectives=coll,
+                stamps=stamps)
+
+
+def _diag_sum_per_rank(Ainv, U, lv):
+    """``pselinv_dist._diag_sum`` with its einsum run once per rank, at
+    the P=1 shapes a rank process gives it (cuBLAS may pick another kernel
+    for the smaller batch)."""
+    import torch
+    B, P = Ainv.shape[:2]
+    cm = lv.cm[None, :, :, :, None, None]
+    Uh_m = torch.where(cm, U, 0.0)
+    Arow = torch.where(cm, Ainv.index_select(2, lv.krs), 0.0)
+    S = torch.stack([torch.cat([
+        torch.einsum("pkjab,pkjcb->pkac", Arow[i, p:p + 1], Uh_m[i, p:p + 1])
+        for p in range(P)]) for i in range(B)])
+    return torch.where(lv.rm[None, :, :, None, None], S, 0.0)
+
+
+def differing_op(eng, vals, rows):
+    """Where ranked shards differ from the single-process solve: rerun
+    the single-process eager sweep with only the diagonal einsum at the
+    ranks' shapes. If every shard then matches its rank's bit for bit,
+    that einsum is the one op that differs."""
+    import torch
+    from repro_torch.core import pselinv_dist as pd
+
+    keep = pd._diag_sum
+    pd._diag_sum = _diag_sum_per_rank
+    try:
+        out = eager_solve(eng, vals, torch.float64)
+    finally:
+        pd._diag_sum = keep
+    same = [_sha1(out[row["rank"]]) == row["sha1"] for row in rows]
+    return ("_diag_sum's einsum (cuBLAS, batch nk at P=1 against 8·nk)"
+            if all(same) else
+            f"not isolated: with the einsum per rank, ranks "
+            f"{[r['rank'] for r, ok in zip(rows, same) if not ok]} still "
+            "differ")
+
+
+def multirank_path(dev, setting, state, b, grid=(4, 2), reps=3,
+                   coll_numel=COLL_NUMEL):
+    """Phase 8: phase 3's FEM f64 solve by ``pr·pc`` rank processes on
+    the one card (``comm.p2p.spawn``, gloo, CUDA payloads staged through
+    pinned host memory), each over its own view of the tables and its own
+    arena, launching the hand-written block GEMM for its shard. Holds
+    every rank's A⁻¹ shard against phase 3's single-process solve
+    (bitwise, else max|Δ| within 1e-12·max|A⁻¹|), each solve to
+    ``gemm_ops`` launches a rank, the ranks' sent bytes to the session's
+    moved bytes and ``executed_wire_bytes``; then times three tree
+    collectives on ``coll_numel`` f32 elements a rank, whose integer
+    results must be exact."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.comm import p2p
+    from repro_torch.core.simulator import executed_wire_bytes
+
+    eng, vals, out, A = (state[k] for k in ("eng", "vals", "out", "A"))
+    P = grid[0] * grid[1]
+    moved = eng.moved()[1]
+    if executed_wire_bytes(eng) != moved:
+        raise AssertionError(f"{setting}: executed_wire_bytes "
+                             f"{executed_wire_bytes(eng)} != moved {moved}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    try:
+        t0 = time.perf_counter()
+        hashes = []
+        for r in range(P):
+            np.save(tmp / f"lh{r}.npy", vals.Lh[r].cpu().numpy())
+            np.save(tmp / f"dinv{r}.npy", vals.Dinv[r].cpu().numpy())
+            hashes.append(_sha1(out[r]))
+        stage_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = p2p.spawn(rank_main, P, A, b, grid, tmp, hashes, reps,
+                         coll_numel, str(dev), time.time(), timeout=600)
+        spawn_s = time.perf_counter() - t0
+        scale = out.abs().max().item()
+        for row in rows:
+            row["max_abs_diff"] = 0.0
+            if not row["bitwise"]:
+                got = np.load(tmp / f"out{row['rank']}.npy")
+                row["max_abs_diff"] = float(np.abs(
+                    got - out[row["rank"]].cpu().numpy()).max())
+        diff_op = (None if all(row["bitwise"] for row in rows)
+                   else differing_op(eng, vals, rows))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    gemm_ops = eng.gemm_ops()
+    stages = {k: max(row["stamps"][k] for row in rows)
+              for k in rows[0]["stamps"]}
+    log(f"{setting}: {P} rank processes on {dev} (gloo, staged through "
+        f"pinned host buffers): values written and hashed in {stage_s:.1f}"
+        f" s, ranks spawned, analyzed, solved and joined in {spawn_s:.1f} s"
+        f" (host clock); the last rank past each stage, s after the spawn: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+    for row in rows:
+        r0 = row["runs"][0]
+        walls = [x["wall_s"] * 1e3 for x in row["runs"]]
+        wires = [(x["rounds_s"] - x["sync_s"]) * 1e3 for x in row["runs"]]
+        syncs = [x["sync_s"] * 1e3 for x in row["runs"]]
+        log(f"  rank {row['rank']}: shard "
+            + ("bitwise equal to the single-process one" if row["bitwise"]
+               else f"differs, max|Δ| {row['max_abs_diff']:.3e}")
+            + f"; block_gemm launches {[x['launches'] for x in row['runs']]}"
+            f" ({r0['variants']}); sent {r0['sent'][0]} msgs "
+            f"{r0['sent'][1]} B, received {r0['received'][0]} msgs "
+            f"{r0['received'][1]} B, staged {r0['staged']} B a solve; wall "
+            f"{[round(w, 1) for w in walls]} ms, of it on the wire "
+            f"(staging copies + gloo) {[round(w, 1) for w in wires]} ms "
+            f"and waiting for the card before a send "
+            f"{[round(w, 1) for w in syncs]} ms, analyze "
+            f"{row['analyze_s']:.2f} s")
+    if diff_op is not None:
+        log(f"  the differing op: {diff_op}; max|Δ| "
+            f"{max(row['max_abs_diff'] for row in rows):.3e} against "
+            f"1e-12·max|A⁻¹| = {1e-12 * scale:.3e}")
+    bad = [row["rank"] for row in rows if not row["bitwise"]
+           and not row["max_abs_diff"] <= 1e-12 * scale]
+    if bad:
+        raise AssertionError(f"{setting}: ranks {bad} differ from the "
+                             "single-process solve by more than "
+                             f"1e-12·max|A⁻¹| ({scale:.3e})")
+    for i in range(reps):
+        launches = [row["runs"][i]["launches"] for row in rows]
+        if launches != [gemm_ops] * P:
+            raise AssertionError(f"{setting}: ranked solve {i} launched "
+                                 f"{launches} block GEMMs, plan has "
+                                 f"{gemm_ops} a rank")
+        if any(row["runs"][i]["variants"] != ["dmma_f64"] for row in rows):
+            raise AssertionError(f"{setting}: a ranked f64 solve ran off "
+                                 "the DMMA variant")
+        sent = sum(row["runs"][i]["sent"][1] for row in rows)
+        recv = sum(row["runs"][i]["received"][1] for row in rows)
+        if not sent == recv == moved:
+            raise AssertionError(f"{setting}: ranked solve {i} sent {sent}"
+                                 f" B, received {recv} B, the session "
+                                 f"moves {moved:.0f} B")
+    solve_ms = [max(row["runs"][i]["barrier_s"] for row in rows) * 1e3
+                for i in range(reps)]
+    log(f"{setting}: ranked solve {[round(x, 1) for x in solve_ms]} ms "
+        f"barrier to barrier (max over ranks), against the single-process "
+        f"eager solve {state['solve_ms']:.1f} ms; sent {sent} B a solve = "
+        f"the session's moved bytes {moved:.0f} = executed_wire_bytes; "
+        f"{P} × {gemm_ops} block GEMM launches a solve, all dmma_f64")
+    coll = {}
+    for j, name in enumerate(r["name"] for r in rows[0]["collectives"]):
+        cs = [row["collectives"][j] for row in rows]
+        if not all(c["exact"] for c in cs):
+            raise AssertionError(f"{name}: integer result not exact on "
+                                 f"ranks {[c for c in cs if not c['exact']]}")
+        wall = max(c["wall_s"] for c in cs)
+        wire = sum(c["sent"][1] for c in cs)
+        payload = coll_numel * 4
+        coll[name] = dict(wall_ms=wall * 1e3, payload_bytes=payload,
+                          wire_bytes=wire,
+                          payload_gb_s=payload / wall / 1e9,
+                          wire_gb_s=wire / wall / 1e9,
+                          staged=sum(c["staged"] for c in cs))
+        log(f"  {name}: {payload / 2**20:.0f} MiB f32 a rank, exact; wall "
+            f"{wall * 1e3:.1f} ms (max over ranks, host clock), "
+            f"{payload / wall / 1e9:.2f} GB/s of payload, wire {wire} B "
+            f"({wire / wall / 1e9:.2f} GB/s), staged "
+            f"{coll[name]['staged']} B")
+    return dict(setting=setting, ranks=P, gemm_ops=gemm_ops, stages=stages,
+                differing_op=diff_op, max_ainv=scale,
+                launches=sum(x["launches"] for row in rows
+                             for x in row["runs"]),
+                moved_bytes=moved, solve_ms=solve_ms,
+                single_ms=state["solve_ms"], spawn_s=spawn_s,
+                stage_s=stage_s, collectives=coll,
+                rows=[{k: v for k, v in row.items()} for row in rows])
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serial supernodal path (factorize + selinv) on the card
 # ---------------------------------------------------------------------------
 
@@ -1812,6 +2138,7 @@ def main() -> int:
     # (the per-round replay) and 5a (the server) on the FEM setting
     fem = main_path(dev, "fem3d_like(16,16,16,3)",
                     lambda: sparse.fem3d_like_matrix(16, 16, 16, 3), 96)
+    fem["multirank"] = multirank_path(dev, fem["setting"], fem["_state"], 96)
     fem["capture"] = {}
     fem["executors"] = executor_path(dev, fem["setting"], fem["_state"], 96,
                                      batch=True, captures=fem["capture"])
@@ -1867,6 +2194,7 @@ def main() -> int:
               for r in s_["capture"].values())
         + serial["backends"]["cuda"]["launches"]["block_gemm"]
         + serve["fem"]["launches"] + serve["traffic"]["launches"]
+        + fem["multirank"]["launches"]
         + ops["launches"]["block_gemm"],
         "trsm": serial["backends"]["cuda"]["launches"]["trsm"]
         + ops["launches"]["trsm"],

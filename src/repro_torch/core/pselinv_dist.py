@@ -5,7 +5,9 @@ The JAX package runs the selected-inversion sweep as one SPMD program
 under ``shard_map`` over ``P = pr·pc`` devices. Here every rank is a
 *virtual* rank on one device: the per-rank state is one leading ``P``
 axis of a single tensor, and a batch of same-structure matrices is one
-more axis in front of it (``(B, P, …)``).
+more axis in front of it (``(B, P, …)``). ``run_distributed`` runs the
+overlapped sweep the other way: each rank a process of a
+``torch.distributed`` group, holding only its own arena.
 
   host plan   ``build_program``   CommPlan → level-serial tables, or the
                                   overlapped round schedule (and its
@@ -25,6 +27,10 @@ more axis in front of it (``(B, P, …)``).
                                   slots
               ``make_sweep_segments``  the overlapped sweep cut at round
                                   boundaries, for ``obs.rounds``
+  ranks       ``run_distributed`` the overlapped sweep by ``pr·pc`` rank
+                                  processes (``rank_tables``,
+                                  ``make_sweep_overlapped_ranked``), its
+                                  permutes as ``comm.p2p`` messages
 
 Every executor runs each level's masked GEMM in the hand-written
 block-GEMM kernel (``ops.pselinv_round_gemm``).
@@ -54,12 +60,14 @@ A⁻¹(K,J) = A⁻¹(J,K)ᵀ — both identities hold blockwise for unpivoted LU
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..comm.p2p import ppermute
 from ..kernels.ops import pselinv_round_gemm
 from ..obs.trace import TRACER
 from .plan import (CommPlan, ExecPlan, OverlappedExec, PlanOptions,
@@ -76,7 +84,9 @@ __all__ = ["PSelInvProgram", "build_program", "SweepTables",
            "ExecTables", "StreamSweepTables", "upload_tables",
            "upload_exec_tables", "upload_stream_tables", "make_sweep",
            "make_sweep_overlapped", "make_sweep_stream",
-           "make_sweep_segments",
+           "make_sweep_segments", "rank_tables",
+           "make_sweep_overlapped_ranked", "check_grid_devices",
+           "prepare_inputs", "run_distributed",
            "validate_uniform_widths", "pad_nb", "analyze_structure",
            "check_values_pattern", "prepare_values", "prepare_values_many",
            "moved_blocks",
@@ -205,7 +215,9 @@ class LaneTables:
     and accumulate masks ``tm``/``am``; for the overlapped permute the
     (src, dst) rank pairs, and for the stream's comm slots one
     ``(src ranks, dst ranks, slot width)`` triple per active slot, each
-    pair kept only where the receiver takes that slot's arrival."""
+    pair kept only where the receiver takes that slot's arrival. One
+    rank's view (:func:`rank_tables`) keeps the permute's pairs as the
+    host list ``perm``."""
     width: int
     ga: torch.Tensor
     gl: torch.Tensor
@@ -219,6 +231,7 @@ class LaneTables:
     dst: Optional[torch.Tensor] = None
     slots: List[Tuple[torch.Tensor, torch.Tensor, int]] = \
         field(default_factory=list)
+    perm: Optional[List[Tuple[int, int]]] = None
 
 
 @dataclass
@@ -901,11 +914,20 @@ def _land(flat, moved, ln: LaneTables) -> None:
         ln.am[None, :, None, None], moved + cur, moved))
 
 
+def _permute_lanes(payload, ln: LaneTables):
+    """The permute over the rank axis: ``moved[:, dst] = payload[:,
+    src]``; ranks that receive nothing get zeros, as in JAX."""
+    moved = torch.zeros_like(payload)
+    moved.index_copy_(1, ln.dst, payload.index_select(1, ln.src))
+    return moved
+
+
 def _round(tabs: SweepTables, t: int, arena, flat, lh_flat, Dinv,
-           nbr, nbc, b):
+           nbr, nbc, b, permute=_permute_lanes):
     """One executed round: the boundary's pinned compute ops, the
     owner-local lane moves, then round ``t``'s coalesced multi-lane
-    permute with per-lane gather/scatter/accumulate/transpose tables."""
+    permute with per-lane gather/scatter/accumulate/transpose tables —
+    over the rank axis, or (``permute``) between rank processes."""
     for kind, li in tabs.compute_at[t]:
         _compute(kind, tabs.levels[li], tabs.N, arena, flat, Dinv, nbr,
                  nbc, b)
@@ -915,8 +937,7 @@ def _round(tabs: SweepTables, t: int, arena, flat, lh_flat, Dinv,
         B, P = arena.shape[:2]
         payload = _gather_lanes(flat, lh_flat, ln).view(
             B, P, ln.width, b, b)
-        moved = torch.zeros_like(payload)
-        moved.index_copy_(1, ln.dst, payload.index_select(1, ln.src))
+        moved = permute(payload, ln)
         _land(flat, moved.view(B, P * ln.width, b, b), ln)
 
 
@@ -1032,6 +1053,129 @@ def make_sweep_segments(prog: PSelInvProgram, tables: SweepTables,
         return _finish(tables, arena, _ctx(Lh, Dinv)[1], nbr, nbc, b)[0]
 
     return init, steps, final
+
+
+# ---------------------------------------------------------------------------
+# the overlapped sweep over rank processes
+# ---------------------------------------------------------------------------
+
+def rank_tables(tables: SweepTables, rank: int, device) -> SweepTables:
+    """Rank ``rank``'s view of the overlapped sweep's tables
+    (:func:`upload_tables`' product, best uploaded to the host): row
+    ``rank`` of every ``(P, …)`` table — the lanes, the level masks that
+    ``_compute`` reads, the structless-diagonal owners — with the arena
+    and L̂ addresses made relative to the rank's own arena and shard (the
+    ``rank·arena_blocks`` and ``rank·N`` offsets of :func:`_lane_stack`
+    and :func:`upload_tables` taken off), copied to ``device``. Each
+    permute keeps its (src, dst) rank pairs as the host list ``perm``,
+    from which a rank reads its send (to ``dst``) and receive (from
+    ``src``). Built from the very tables the single-process sweep reads,
+    so the two can never read different tables; ``P`` is 1."""
+    P, A, N = tables.P, tables.arena_blocks, tables.N
+    if not 0 <= rank < P:
+        raise ValueError(f"rank {rank} outside a grid of {P}")
+    dev = torch.device(device)
+
+    def mine(x):                 # row `rank`, leading axis kept
+        return x[rank:rank + 1].to(dev, copy=True)
+
+    def shared(x):
+        return x.to(dev, copy=True)
+
+    def lanes(ln: Optional[LaneTables]) -> Optional[LaneTables]:
+        if ln is None:
+            return None
+        W = ln.width
+
+        def row(x, off=0):
+            r = x.view(P, W)[rank]
+            return r - off if off else r
+
+        lh, tm = row(ln.lh), row(ln.tm)
+        return LaneTables(
+            width=W, ga=shared(row(ln.ga, rank * A)),
+            gl=shared(row(ln.gl, rank * N)), lh=shared(lh),
+            mixed=bool(lh.any()), sc=shared(row(ln.sc, rank * A)),
+            tm=shared(tm), any_t=bool(tm.any()),
+            am=None if ln.am is None else shared(row(ln.am)),
+            perm=None if ln.src is None else list(zip(
+                ln.src.tolist(), ln.dst.tolist())))
+
+    levels = [LevelTables(
+        nk=lv.nk, cm=mine(lv.cm), kcs=shared(lv.kcs), w=mine(lv.w),
+        krs=shared(lv.krs), rm=mine(lv.rm), dslot=shared(lv.dslot),
+        dslot_c=shared(lv.dslot_c), droot=mine(lv.droot),
+        ut=shared(lv.ut.view(P, -1)[rank] - rank * A),
+        base_p=lv.base_p, base_s=lv.base_s) for lv in tables.levels]
+    local = [lanes(ln) for ln in tables.local]
+    comm = [lanes(ln) for ln in tables.comm]
+    tabs = SweepTables(
+        device=dev, P=1, N=N, arena_blocks=A,
+        dset_slot=shared(tables.dset_slot), dset_m=mine(tables.dset_m),
+        levels=levels, local=local, comm=comm,
+        compute_at=tables.compute_at)
+    _count_bytes(tabs, [tabs, *levels,
+                        *[x for x in local + comm if x is not None]])
+    return tabs
+
+
+def _rank_permute(rank: int, group):
+    """The permute of a rank process: its payload to its ``dst`` and its
+    arrival from its ``src``, as one :func:`~..comm.p2p.ppermute`; a rank
+    that receives nothing lands zeros, as over the rank axis."""
+    def permute(payload, ln: LaneTables):
+        moved = ppermute(payload, ln.perm, group)
+        if any(d == rank for _, d in ln.perm):
+            return moved
+        return torch.zeros_like(payload)
+    return permute
+
+
+def make_sweep_overlapped_ranked(prog: PSelInvProgram, tables: SweepTables,
+                                 rank: int, group=None):
+    """The overlapped sweep as rank ``rank`` of a ``pr·pc``-process group
+    runs it, over its own view of the tables (:func:`rank_tables`). Each
+    round follows :func:`_round`: the boundary's compute ops, the
+    owner-local lanes, the lane gather of this rank's payload, one
+    :func:`~..comm.p2p.ppermute` of it between the rank processes, and the
+    landing at the receiver. Only this rank's ``(1, 1, arena, b, b)``
+    arena is held; the level GEMM runs in the hand-written kernel at Z=1
+    (``ops.pselinv_round_gemm``). The returned ``sweep(Lh, Dinv)`` takes
+    the rank's value shards ``(nbr, nbc, b, b)`` on the tables' device
+    and returns its A⁻¹ shard in the same layout. Nothing is read back to
+    the host inside the sweep except the staged payloads of a CUDA
+    run."""
+    import torch.distributed as dist
+
+    ov = prog.overlap_plan
+    if ov is None:
+        raise ValueError("build_program(..., overlap=True) first")
+    if tables.P != 1:
+        raise ValueError("the ranked sweep reads one rank's tables — "
+                         "rank_tables(upload_tables(...), rank, device)")
+    if dist.get_rank(group) != rank or (
+            dist.get_world_size(group) != prog.pr * prog.pc):
+        raise ValueError(
+            f"rank {rank} of a {prog.pr}x{prog.pc} grid, but this process "
+            f"is rank {dist.get_rank(group)} of "
+            f"{dist.get_world_size(group)}")
+    b, N, A = prog.b, tables.N, tables.arena_blocks
+    nbr, nbc = ov.nbr, ov.nbc
+    permute = _rank_permute(rank, group)
+
+    def sweep(Lh: torch.Tensor, Dinv: torch.Tensor) -> torch.Tensor:
+        Lh, Dinv = _values(Lh[None], Dinv[None], (1, nbr, nbc, b, b),
+                           tables.device, False)
+        lh_flat = Lh.reshape(1, N, b, b)
+        Dinv_f = Dinv.reshape(1, 1, N, b, b)
+        arena = _init_arena(tables, Dinv_f, b)
+        flat = arena.view(1, A, b, b)
+        for t in range(len(tables.comm)):
+            _round(tables, t, arena, flat, lh_flat, Dinv_f, nbr, nbc, b,
+                   permute)
+        return _finish(tables, arena, Dinv_f, nbr, nbc, b)[0, 0]
+
+    return sweep
 
 
 # ---------------------------------------------------------------------------
@@ -1215,7 +1359,7 @@ def prepare_values(A, bs: BlockStructure, nb: int, b: int, pr: int,
     A = check_values_pattern(A, bs, b)
     nb0 = bs.nsuper
 
-    lu = factorize(A, bs=bs)
+    lu = factorize(A, bs=bs, backend="numpy")
     Lhat, _ = normalize_factors(lu)
 
     Lh_g = np.zeros((nb, nb, b, b))
@@ -1317,6 +1461,105 @@ def prepare_values_many(mats: Sequence, bs: BlockStructure, nb: int,
     return (_shard_blocks(Lh, nb, b, pr, pc),
             _shard_blocks(Dinv, nb, b, pr, pc))
 
+
+def prepare_inputs(A, b: int, pr: int, pc: int):
+    """Factorize (host), normalize, and lay out dense-blocked shards.
+
+    Returns (bs, nb, Lh, Dinv), the arrays shaped (pr*pc, nbr, nbc, b,
+    b). Back-compat composition of :func:`analyze_structure` and
+    :func:`prepare_values`, deprecated as in the JAX package."""
+    warnings.warn(
+        "prepare_inputs is deprecated: use PSelInvEngine.analyze(...) + "
+        "engine.prepare_values(...) (the analyze-once/solve-many split) "
+        "or analyze_structure/prepare_values directly",
+        DeprecationWarning, stacklevel=2)
+    bs, nb = analyze_structure(A, b, pr, pc)
+    Lh_s, Dinv_s = prepare_values(A, bs, nb, b, pr, pc)
+    return bs, nb, Lh_s, Dinv_s
+
+
+def check_grid_devices(pr: int, pc: int, group=None) -> None:
+    """Raise the canonical diagnostic unless the process group has one
+    rank per grid position (a process outside any group is a group of
+    one)."""
+    import torch.distributed as dist
+
+    have = dist.get_world_size(group) if dist.is_initialized() else 1
+    if pr * pc != have:
+        raise ValueError(
+            f"process grid {pr}x{pc} needs {pr * pc} devices, one rank "
+            f"process each, but the process group has {have} — change the "
+            f"grid or launch {pr * pc} ranks "
+            "(repro_torch.comm.p2p.spawn)")
+
+
+def _scatter_values(A, prog: PSelInvProgram, group) -> torch.Tensor:
+    """Rank 0 prepares the value shards once (the host factorization)
+    and sends each rank its own, outside the sweep: (2, nbr, nbc, b, b)
+    f64 on the host, L̂ then D⁻¹."""
+    import torch.distributed as dist
+
+    from ..comm.p2p import global_rank
+
+    shard = torch.empty((2, prog.nbr, prog.nbc, prog.b, prog.b),
+                        dtype=torch.float64)
+    parts = None
+    if dist.get_rank(group) == 0:
+        Lh, Dinv = prepare_values(A, prog.bs, prog.nb, prog.b, prog.pr,
+                                  prog.pc)
+        parts = list(torch.from_numpy(np.stack([Lh, Dinv], axis=1)))
+    dist.scatter(shard, parts, src=global_rank(group, 0), group=group)
+    return shard
+
+
+def run_distributed(A, b: int, pr: int, pc: int,
+                    kind: TreeKind = TreeKind.SHIFTED,
+                    dtype: torch.dtype = torch.float32,
+                    pipelined: bool = True, overlap: bool = True,
+                    device="cuda", group=None):
+    """End-to-end selected inversion by ``pr·pc`` rank processes — each
+    process of ``group`` (the default group when None) calls it with the
+    same arguments. Every rank analyzes ``A`` (deterministic); rank 0
+    prepares the values once and sends each rank its shards; each rank
+    runs the overlapped sweep on ``device`` over its own tables
+    (:func:`make_sweep_overlapped_ranked`), its level GEMMs in the
+    hand-written kernel, its rounds as point-to-point messages; an
+    ``all_gather`` after the sweep hands every rank the full ``(P, nbr,
+    nbc, b, b)`` numpy array, so ``gather_blocks(out, prog)`` works as in
+    the JAX package. Returns ``(out, prog)``.
+
+    Unlike the JAX package's shim over its engine this entry point is
+    not deprecated: the port's engine runs every rank in one process,
+    and this is its multi-process path. ``overlap=False`` (the
+    level-serial executor) and ``pipelined=False`` (the legacy unrolled
+    one) over ranks are not ported. ``device="cuda"`` raises on a rank
+    that has no card; on a one-card machine every rank shares
+    ``cuda:0``."""
+    if not pipelined:
+        raise NotImplementedError(
+            "run_distributed(pipelined=False): the legacy unrolled "
+            "executor over rank processes is not ported (ROADMAP Queue 1)")
+    if not overlap:
+        raise NotImplementedError(
+            "run_distributed(overlap=False): the level-serial executor "
+            "over rank processes is not ported (ROADMAP Queue 1)")
+    import torch.distributed as dist
+
+    from .device import resolve_device
+
+    check_grid_devices(pr, pc, group)
+    dev = resolve_device(device)
+    rank = dist.get_rank(group)
+    bs, nb = analyze_structure(A, b, pr, pc)
+    prog = build_program(bs, nb, b, pr, pc, kind=kind, overlap=True)
+    shard = _scatter_values(A, prog, group)
+    tabs = rank_tables(upload_tables(prog, "cpu"), rank, dev)
+    out = make_sweep_overlapped_ranked(prog, tabs, rank, group)(
+        shard[0].to(dev, dtype), shard[1].to(dev, dtype))
+    host = out.cpu()        # the result goes back as numpy
+    parts = [torch.empty_like(host) for _ in range(pr * pc)]
+    dist.all_gather(parts, host, group=group)
+    return torch.stack(parts).numpy(), prog
 
 
 def gather_blocks(out, prog):

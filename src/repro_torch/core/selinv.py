@@ -123,10 +123,12 @@ def selinv(lu: LUFactors) -> Dict[Key, np.ndarray]:
 
 
 def selected_inverse(A: sp.spmatrix, max_supernode: int = 32,
-                     backend: str = "numpy", device=None,
+                     backend: str = "cuda", device=None,
                      dtype: Optional[torch.dtype] = None
                      ) -> Tuple[Dict[Key, np.ndarray], BlockStructure]:
-    """End-to-end: symbolic → LU → selected inversion. ``device`` and
+    """End-to-end: symbolic → LU → selected inversion, by default on the
+    card (the ``cuda`` backend; it raises without one — pass
+    ``backend="numpy"`` or ``device="cpu"`` for the host). ``device`` and
     ``dtype`` choose where the torch backends run (default the card, in
     float64)."""
     bs = symbolic_factorize(A, max_supernode=max_supernode)

@@ -218,11 +218,12 @@ def _get_block(A: sp.csr_matrix, bs: BlockStructure, I: int, J: int) -> np.ndarr
 
 
 def factorize(A: sp.spmatrix, bs: BlockStructure | None = None,
-              max_supernode: int = 32, backend: str = "numpy",
+              max_supernode: int = 32, backend: str = "cuda",
               device=None, dtype: Optional[torch.dtype] = None) -> LUFactors:
     """Right-looking supernodal LU over the filled block structure. The
     diagonal blocks are factored on the host (``dense_lu_nopivot``), the
-    panel solves and Schur updates run on the backend."""
+    panel solves and Schur updates run on the backend — by default the
+    ``cuda`` one, on the card (it raises without one)."""
     A = sp.csr_matrix(A)
     if bs is None:
         bs = symbolic_factorize(A, max_supernode=max_supernode)

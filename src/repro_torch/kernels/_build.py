@@ -10,7 +10,9 @@ stderr — there is no fallback. :func:`launch` calls a bound entry on
 the current stream with as little host work as a call can take."""
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -62,15 +64,39 @@ def source_digest() -> str:
     return h.hexdigest()
 
 
+@contextlib.contextmanager
+def _dir_lock():
+    """An exclusive ``flock`` on ``BUILD_DIR/lock``: one process builds at
+    a time, the others wait (the kernel drops the lock with its holder,
+    so a killed build leaves nothing to clean up)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Sequence[str]) -> Dict[str, Path]:
     """Compile every named source that has no up-to-date library, all
-    nvcc processes started together, and return the library paths."""
+    nvcc processes started together, and return the library paths. A
+    process that finds a library missing takes the build directory's
+    file lock and looks again, so rank processes that start together
+    never write the same library: one builds, the others wait and load
+    it (``spawn`` callers build in the parent first)."""
     out = {n: _target(n) for n in names}
-    todo = [n for n in names if not out[n].exists()]
-    if not todo:
+    if all(out[n].exists() for n in names):
         return out
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _dir_lock():
+        todo = [n for n in names if not out[n].exists()]
+        if todo:
+            _compile(todo, out, nvcc)
+    return out
+
+
+def _compile(todo: Sequence[str], out: Dict[str, Path], nvcc: str) -> None:
     procs = {}
     for n in todo:
         tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
@@ -88,7 +114,6 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
             os.replace(tmp, out[n])
     if failed:
         raise RuntimeError("\n".join(failed))
-    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -3,8 +3,11 @@ flash attention) against its plain version, the engine's CUDA solve
 against its CPU solve, the level-serial and stream executors against
 the overlapped one (one block-GEMM launch per planned GEMM), the
 profiling replay against the solve, the serial path's ``cuda``
-backend against the numpy backend, and the CUDA-graph runners and the
-server on them against the eager sweep.
+backend against the numpy backend, the CUDA-graph runners and the
+server on them against the eager sweep, and rank processes sharing the
+card: a gloo ``ppermute`` of a CUDA tensor (staged through pinned host
+memory) and a ranked ``run_distributed`` against the single-process
+solve.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one; the file imports neither JAX nor the JAX package, so it runs on a
@@ -179,7 +182,7 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
 
 def test_serial_cuda_backend_matches_numpy(cuda_device):
     A = sparse.laplacian_2d(16, 8)
-    ref, bs = selected_inverse(A, max_supernode=8)
+    ref, bs = selected_inverse(A, max_supernode=8, backend="numpy")
     before = tk.launches
     got, _ = selected_inverse(A, max_supernode=8, backend="cuda")
     assert tk.launches - before == sum(1 for s in bs.struct if len(s))
@@ -613,3 +616,65 @@ def test_server_through_graphs_matches_eager_bitwise(cuda_device):
     (s,) = st["structures"].values()
     assert s["buckets_used"] == [2, 4]
     assert eng.trace_count == 3             # buckets 4 and 2, and B=1
+
+
+# ---- rank processes on the card: the gloo transport and the ranked sweep --
+
+def _ppermute_rank(rank):
+    """Rank 0 sends a seeded CUDA f64 tensor to rank 1 and rank 1 sends
+    its own back: one round, both ways."""
+    from repro_torch.comm import p2p
+    torch.cuda.set_device(0)
+    x = torch.from_numpy(np.random.default_rng(rank).standard_normal(
+        (3, 96, 96))).cuda()
+    p2p.LOG.clear()
+    got = p2p.ppermute(x, [(0, 1), (1, 0)])
+    torch.cuda.synchronize()
+    return dict(sent=x.cpu().numpy(), got=got.cpu().numpy(),
+                device=str(got.device), staged=p2p.LOG.staged_bytes,
+                log=list(p2p.LOG.entries))
+
+
+def test_ppermute_of_a_cuda_tensor_arrives_bitwise(cuda_device):
+    from repro_torch.comm import p2p
+    r0, r1 = p2p.spawn(_ppermute_rank, 2, timeout=300)
+    np.testing.assert_array_equal(r1["got"], r0["sent"])
+    np.testing.assert_array_equal(r0["got"], r1["sent"])
+    nbytes = 3 * 96 * 96 * 8
+    for rank, r in enumerate((r0, r1)):
+        assert r["device"] == "cuda:0"
+        assert r["staged"] == 2 * nbytes        # down to pinned, and up
+        assert sorted(r["log"]) == sorted([(0, 0, 1, nbytes),
+                                           (0, 1, 0, nbytes)])
+
+
+def _ranked_lap_rank(rank):
+    from repro_torch.comm import p2p
+    from repro_torch.core.pselinv_dist import run_distributed
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p2p.LOG.clear()
+    bg.launches = 0
+    out, prog = run_distributed(sparse.laplacian_2d(16, 8), b=8, pr=4, pc=2,
+                                dtype=torch.float64, device="cuda")
+    return dict(out=out if rank == 0 else None, launches=bg.launches,
+                sent=p2p.LOG.sent()[1], staged=p2p.LOG.staged_bytes)
+
+
+def test_ranked_solve_on_the_card_equals_single_process(cuda_device):
+    """A 4×2 ranked solve of ``laplacian_2d(16, 8)`` by 8 processes on the
+    one card (kernels built in the parent first) equals the single-process
+    card solve; every rank launches the hand-written GEMM once a GEMM op,
+    and stages each message it sends and receives."""
+    from repro_torch.comm import p2p
+    from repro_torch.kernels import _build
+    _build.build(["block_gemm"])
+    A = sparse.laplacian_2d(16, 8)
+    PSelInvEngine.clear_cache()
+    eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2))
+    single = eng.solve(A, dtype=torch.float64).cpu().numpy()
+    rows = p2p.spawn(_ranked_lap_rank, 8, timeout=600)
+    np.testing.assert_array_equal(rows[0]["out"], single)
+    assert [r["launches"] for r in rows] == [eng.gemm_ops()] * 8
+    assert sum(r["sent"] for r in rows) == eng.moved()[1]
+    assert sum(r["staged"] for r in rows) == 2 * eng.moved()[1]

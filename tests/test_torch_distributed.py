@@ -1,0 +1,244 @@
+"""The port's multi-rank sweep (``run_distributed`` over 8 gloo rank
+processes, ``device="cpu"``) against the JAX package's ``run_distributed``
+on 8 host devices, the dense oracle and the port's single-process
+engine, in f64.
+
+One JAX subprocess (8 host devices, x64) runs ``run_distributed`` on a
+Laplacian and on a bushy FEM-like structure (several supernodes per
+elimination-tree level), b=8 on grid 4×2, with the flat and the shifted
+trees, and writes an ``.npz``. One group of 8 gloo processes runs the
+port's ``run_distributed`` on the same four cases; every rank returns
+the full result and its send log. The result must be within 1e-12 of
+JAX's and of ``dense_selinv_oracle`` on the selected blocks, and bitwise
+equal to the port's single-process ``engine.solve`` (the level GEMM and
+the diagonal einsum run at P=1 per process, at P=8 in one; on the CPU
+both sum each element in one order). The ranks' sent bytes must total
+``executed_wire_bytes`` and ``engine.stats()["moved_bytes"]``."""
+import threading
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import run_sub
+
+from repro_torch.comm import p2p
+from repro_torch.core import sparse
+from repro_torch.core.engine import Grid, PSelInvEngine
+from repro_torch.core.plan import PlanOptions
+from repro_torch.core.pselinv_dist import (build_program, check_grid_devices,
+                                           gather_blocks, prepare_inputs,
+                                           rank_tables, run_distributed,
+                                           upload_tables)
+from repro_torch.core.selinv import dense_selinv_oracle
+from repro_torch.core.simulator import executed_wire_bytes
+from repro_torch.core.trees import TreeKind
+from repro_torch.kernels import _build
+
+TOL = 1e-12
+KINDS = {"flat": TreeKind.FLAT, "shifted": TreeKind.SHIFTED}
+CASES = [(m, k) for m in ("lap", "fem") for k in KINDS]
+
+
+def _matrices():
+    return {"lap": sparse.laplacian_2d(12, 8),
+            "fem": sparse.make_numeric(sparse.fem3d_like_matrix(4, 4, 4, 2)[0],
+                                       symmetric_values=True)}
+
+
+@pytest.fixture(scope="module")
+def jax_ref(tmp_path_factory):
+    path = tmp_path_factory.mktemp("distref") / "ref.npz"
+    run_sub(f"""
+        import warnings
+        import numpy as np
+        import jax.numpy as jnp
+        from repro.core import sparse
+        from repro.core.trees import TreeKind
+        from repro.core.pselinv_dist import run_distributed
+        warnings.simplefilter("ignore", DeprecationWarning)
+        mats = {{"lap": sparse.laplacian_2d(12, 8),
+                 "fem": sparse.make_numeric(
+                     sparse.fem3d_like_matrix(4, 4, 4, 2)[0],
+                     symmetric_values=True)}}
+        kinds = {{"flat": TreeKind.FLAT, "shifted": TreeKind.SHIFTED}}
+        out = {{}}
+        for m, A in mats.items():
+            for k, kind in kinds.items():
+                o, _ = run_distributed(A, b=8, pr=4, pc=2, kind=kind,
+                                       dtype=jnp.float64)
+                out[m + "_" + k] = np.asarray(o)
+        np.savez({str(path)!r}, **out)
+    """, ndev=8, x64=True)
+    return dict(np.load(path))
+
+
+def _port_rank(rank):
+    """The four cases on this rank: its full result, its send log and
+    the rounds it took part in."""
+    torch.set_num_threads(1)
+    mats, res = _matrices(), {}
+    for m, k in CASES:
+        p2p.LOG.clear()
+        out, prog = run_distributed(mats[m], b=8, pr=4, pc=2,
+                                    kind=KINDS[k], dtype=torch.float64,
+                                    device="cpu")
+        moves = [(r, s == rank) for r, s, _, _ in p2p.LOG.entries]
+        res[m + "_" + k] = dict(out=out, sent=p2p.LOG.sent(),
+                                received=p2p.LOG.received(),
+                                rounds=p2p.LOG.rounds,
+                                staged=p2p.LOG.staged_bytes,
+                                once=len(moves) == len(set(moves)))
+    return res
+
+
+@pytest.fixture(scope="module")
+def port():
+    return p2p.spawn(_port_rank, 8, timeout=400)
+
+
+def _engine(m, k):
+    eng = PSelInvEngine.analyze(_matrices()[m], b=8, grid=Grid(4, 2),
+                                options=PlanOptions(kind=KINDS[k]),
+                                device="cpu")
+    return eng, eng.solve(_matrices()[m], dtype=torch.float64).numpy()
+
+
+@pytest.mark.parametrize("m,k", CASES)
+def test_ranked_solve_matches_jax_and_oracle(jax_ref, port, m, k):
+    out = port[0][m + "_" + k]["out"]
+    for r in range(1, 8):       # the all_gather hands every rank the same
+        np.testing.assert_array_equal(port[r][m + "_" + k]["out"], out)
+    assert np.abs(out - jax_ref[m + "_" + k]).max() <= TOL
+    eng, _ = _engine(m, k)
+    G, ref, b = gather_blocks(out, eng), dense_selinv_oracle(_matrices()[m]), 8
+    err = 0.0
+    for K in range(eng.bs.nsuper):
+        for I in [K] + [int(i) for i in eng.bs.struct[K]]:
+            for (r, c) in ((I, K), (K, I)):
+                err = max(err, np.abs(G[r, c] - ref[r * b:(r + 1) * b,
+                                                    c * b:(c + 1) * b]).max())
+    assert err <= TOL
+
+
+@pytest.mark.parametrize("m,k", CASES)
+def test_ranked_solve_equals_single_process(port, m, k):
+    _, single = _engine(m, k)
+    np.testing.assert_array_equal(port[0][m + "_" + k]["out"], single)
+
+
+@pytest.mark.parametrize("m,k", CASES)
+def test_send_log_totals_the_executed_wire(port, m, k):
+    """Every message is logged once by its sender and once by its
+    receiver; the senders' bytes total the plan's executed wire and the
+    session's moved bytes, in f64; a rank sends and receives at most once
+    a round; the ranks all count the same rounds; CPU tensors stage
+    nothing."""
+    eng, _ = _engine(m, k)
+    rows = [port[r][m + "_" + k] for r in range(8)]
+    sent = sum(row["sent"][1] for row in rows)
+    assert sent == sum(row["received"][1] for row in rows)
+    assert sent == executed_wire_bytes(eng.program)
+    assert sent == eng.stats()["moved_bytes"]
+    assert sum(row["sent"][0] for row in rows) == sum(
+        len(rnd.perm) for rnd in eng.program.overlap_plan.rounds)
+    assert {row["rounds"] for row in rows} == {eng.moved()[0]}
+    assert all(row["once"] and row["staged"] == 0 for row in rows)
+
+
+def test_rank_tables_are_rows_of_the_uploaded_tables():
+    """A rank's view plus its arena and shard offsets gives back row
+    ``rank`` of every lane table, and each permute's pairs."""
+    A = _matrices()["fem"]
+    eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2), device="cpu")
+    tabs = upload_tables(eng.program, "cpu")
+    P, AB, N = tabs.P, tabs.arena_blocks, tabs.N
+    for rank in (0, 5):
+        mine = rank_tables(tabs, rank, "cpu")
+        assert mine.P == 1 and mine.dset_m.shape[0] == 1
+        for g, ln in zip(tabs.comm, mine.comm):
+            if g is None:
+                assert ln is None
+                continue
+            W = g.width
+            assert torch.equal(ln.ga + rank * AB, g.ga.view(P, W)[rank])
+            assert torch.equal(ln.gl + rank * N, g.gl.view(P, W)[rank])
+            assert torch.equal(ln.sc + rank * AB, g.sc.view(P, W)[rank])
+            assert ln.perm == list(zip(g.src.tolist(), g.dst.tolist()))
+        for g, lv in zip(tabs.levels, mine.levels):
+            assert torch.equal(lv.cm[0], g.cm[rank])
+            assert torch.equal(lv.ut + rank * AB, g.ut.view(P, -1)[rank])
+    with pytest.raises(ValueError, match="outside a grid"):
+        rank_tables(tabs, P, "cpu")
+
+
+def test_grid_and_input_errors():
+    """The reference's diagnostics: a grid that is not one rank per
+    process, a size that is not a multiple of b, and the deprecated
+    ``prepare_inputs``."""
+    A = sparse.laplacian_2d(12, 8)
+    with pytest.raises(ValueError, match=r"grid 64x64 needs 4096 devices"):
+        check_grid_devices(64, 64)
+    with pytest.raises(ValueError, match=r"grid 64x64 needs 4096 devices"):
+        run_distributed(A, b=8, pr=64, pc=64, device="cpu")
+    with pytest.raises(ValueError, match=r"not a multiple of the supernode"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            prepare_inputs(A, b=7, pr=1, pc=1)
+    with pytest.warns(DeprecationWarning, match="prepare_inputs"):
+        bs, nb, Lh, Dinv = prepare_inputs(A, b=8, pr=4, pc=2)
+    assert Lh.shape == Dinv.shape == (8, nb // 4, nb // 2, 8, 8)
+
+
+@pytest.mark.parametrize("kw", [dict(overlap=False), dict(pipelined=False)])
+def test_other_executors_over_ranks_are_not_ported(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_distributed(sparse.laplacian_2d(12, 8), b=8, pr=4, pc=2,
+                        device="cpu", **kw)
+
+
+def test_ranked_sweep_needs_one_ranks_tables():
+    from repro_torch.core.pselinv_dist import (analyze_structure,
+                                               make_sweep_overlapped_ranked)
+    A = sparse.laplacian_2d(12, 8)
+    bs, nb = analyze_structure(A, 8, 4, 2)
+    prog = build_program(bs, nb, 8, 4, 2, overlap=True)
+    with pytest.raises(ValueError, match="rank_tables"):
+        make_sweep_overlapped_ranked(prog, upload_tables(prog, "cpu"), 0)
+
+
+def test_build_lock_one_compile_for_concurrent_callers(tmp_path,
+                                                      monkeypatch):
+    """Four callers that find the library missing at once: one compiles
+    (a stand-in nvcc that records each run), the others wait on the build
+    directory's lock and load its library."""
+    cuda = tmp_path / "cuda" / "bin"
+    cuda.mkdir(parents=True)
+    runs = tmp_path / "runs"
+    nvcc = cuda / "nvcc"
+    nvcc.write_text(f"""#!/bin/sh
+echo run >> {runs}
+sleep 0.5
+while [ "$1" != "-o" ]; do shift; done
+echo lib > "$2"
+""")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    got, errs = [], []
+
+    def call():
+        try:
+            got.append(_build.build(["block_gemm"])["block_gemm"])
+        except Exception as e:          # surfaced by the assert below
+            errs.append(e)
+
+    threads = [threading.Thread(target=call) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads) and not errs
+    assert runs.read_text().split() == ["run"]
+    assert len(set(got)) == 1 and got[0].read_text() == "lib\n"

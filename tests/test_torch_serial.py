@@ -85,7 +85,7 @@ def test_f32_matches_dense_oracle(backend):
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_f64_matches_numpy_backend(backend):
     A = _matrix()
-    ref, bs = selected_inverse(A, max_supernode=6)
+    ref, bs = selected_inverse(A, max_supernode=6, backend="numpy")
     got, _ = selected_inverse(A, max_supernode=6, backend=backend,
                               device="cpu", dtype=torch.float64)
     assert _max_diff(got, ref) <= TOL
@@ -186,8 +186,8 @@ def test_stacked_supernode_solve_equals_per_block_solves(monkeypatch):
                        device="cpu", dtype=torch.float64)
     sizes = [len(s) for s in lu.bs.struct]
     assert seen == sizes and max(sizes) > 1
-    assert _max_diff(lu.L, slu.factorize(_matrix(), max_supernode=6).L) \
-        <= TOL
+    assert _max_diff(lu.L, slu.factorize(_matrix(), max_supernode=6,
+                                         backend="numpy").L) <= TOL
 
 
 def test_backend_cache_and_factor_records():
@@ -202,7 +202,7 @@ def test_backend_cache_and_factor_records():
                        device="cpu", dtype=torch.float32)
     assert (lu.device, lu.dtype) == (torch.device("cpu"), torch.float32)
     assert lu.L[next(iter(lu.L))].dtype == torch.float32
-    np_lu = slu.factorize(_matrix(), max_supernode=6)
+    np_lu = slu.factorize(_matrix(), max_supernode=6, backend="numpy")
     assert (np_lu.backend, np_lu.device, np_lu.dtype) == ("numpy", None,
                                                           None)
     with pytest.raises(ValueError):
@@ -227,3 +227,14 @@ def test_default_device_raises_without_a_card(monkeypatch, backend):
         slu.get_backend(backend)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         selected_inverse(_matrix(), max_supernode=6, backend=backend)
+
+
+def test_serial_entry_points_default_to_the_card(monkeypatch):
+    """``selected_inverse`` and ``factorize`` run on the card unless asked
+    for the host: without one, their default raises ``resolve_device``'s
+    error instead of falling back to numpy."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        selected_inverse(_matrix(), max_supernode=6)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        slu.factorize(_matrix(), max_supernode=6)
