@@ -46,6 +46,13 @@ on the card:
    bitwise equal to the eager sweep, one block-GEMM node per planned GEMM
    in the graph (all on the DMMA variant), eager and replayed solves
    timed in turns, a replay traced for its busy share;
+3e. lints each setting's executors (``engine.lint_compiled``, f64): the op
+   layer and the executed permutes of one eager sweep and the permutes
+   recorded while phase 3d captured the graph, held to the plan — no
+   ERROR diagnostic, recorded wire blocks = the plan's, the graph's
+   block-GEMM nodes = ``gemm_ops()`` — with the lint's wall and op
+   counts; then a Laplacian session whose permute helper retargets one
+   pair must fail its lint on the card;
 4. runs the serial path — ``factorize`` + ``selinv`` with the ``cuda`` and
    ``torch`` backends in f64 — on the FEM matrix, against the dense
    inverse and the engine's solve, with one trsm launch per supernode
@@ -74,7 +81,13 @@ on the card:
    rank's A⁻¹ shard against phase 3's (sha1, else max|Δ| within
    1e-12·max|A⁻¹| with the differing op isolated), 35 block-GEMM launches
    a rank a solve on the DMMA variant, the sent bytes against the
-   session's moved bytes, time in rounds against the rest; then
+   session's moved bytes, time in rounds against the rest; then the
+   paper's level-serial sweep by the same ranks (``make_sweep_ranked``,
+   every tree round a point-to-point message): a warm-up and two solves
+   barrier to barrier, each rank's shard against the single-process level-serial
+   solve (sha1, else max|Δ| within 1e-12·max|A⁻¹|), the sent bytes
+   against the plan's wire and every rank's send log held to the plan
+   round by round (``exec_verify.lint_ranked``); then
    ``subset_broadcast``, ``subset_reduce`` and ``tree_allreduce`` on
    64 MiB of integer-valued f32 a rank, exact, with wall and GB/s;
 9. writes every measured row to ``build/chip_smoke.json`` and prints the
@@ -1009,7 +1022,7 @@ def executor_path(dev, setting, state, b, grid=(4, 2), batch=False,
     stream bitwise equal to the stream. Each executor's solve is traced
     once for its device-busy breakdown. With ``captures`` (a dict), phase
     3d runs on each executor, the overlapped one included, and fills it
-    by executor name."""
+    by executor name, each entry with phase 3e's lint under ``"lint"``."""
     import torch
     from repro_torch.core.engine import Grid, PSelInvEngine
     from repro_torch.core.simulator import executed_wire_bytes
@@ -1024,6 +1037,8 @@ def executor_path(dev, setting, state, b, grid=(4, 2), batch=False,
     if captures is not None:
         captures["overlapped"] = capture_path(setting, "overlapped",
                                               state["eng"], vals, out_ov)
+        captures["overlapped"]["lint"] = lint_path(setting, "overlapped",
+                                                   state["eng"])
     for name in EXECUTORS:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1066,6 +1081,7 @@ def executor_path(dev, setting, state, b, grid=(4, 2), batch=False,
             padded_check(eng, vals, out, setting)
         if captures is not None:
             captures[name] = capture_path(setting, name, eng, vals, out)
+            captures[name]["lint"] = lint_path(setting, name, eng)
         log(f"{setting} {name}:")
         prof = profile_solve(lambda: eager_solve(eng, vals, torch.float64))
         st = eng.stats()
@@ -1183,6 +1199,142 @@ def capture_path(setting, name, eng, vals, eager_out):
         f"replay busy {busy}; graph memory {st['graph_bytes'] / 2**30:.2f}"
         f" GiB")
     return r
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: the executed-communication verifier on the card
+# ---------------------------------------------------------------------------
+
+def lint_path(setting, name, eng):
+    """Phase 3e: ``engine.lint_compiled`` of the single-matrix f64
+    class, whose graph phase 3d captured: one eager sweep on zero values
+    under the recorder and the op layer, and the permutes recorded at the
+    capture, each held to the plan, and the session's device index
+    tables to the host lists the records are made from. Fails on any
+    ERROR diagnostic, on recorded wire blocks other than the plan's (the
+    stream's: its landed blocks), on a layer that did not record every
+    planned permute (the stream: every landing slot at its step), and on
+    graph block-GEMM nodes other than ``gemm_ops()``. Host clock around
+    the lint (it ends in a synchronize)."""
+    import torch
+    from repro_torch.core.exec_verify import (expected_permutes,
+                                              stream_landings)
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.lint_compiled(dtype=torch.float64)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()["block_gemm"]
+    info = res.info
+    what = f"{setting} {name} lint"
+    if res.errors:
+        raise AssertionError(f"{what}: " + "; ".join(map(str, res.errors)))
+    if info["wire_blocks"] != info["expected_blocks"]:
+        raise AssertionError(f"{what}: recorded {info['wire_blocks']} wire "
+                             f"blocks, the plan {info['expected_blocks']}")
+    st = eng.program.stream_tables
+    want = (len(stream_landings(st)) if st is not None else
+            sum(e.activations for e in expected_permutes(eng.program)))
+    layers = info["layers"]
+    if (layers["eager"], layers["graph"]) != (want, want):
+        raise AssertionError(f"{what}: {layers} permutes recorded, the "
+                             f"plan runs {want}")
+    if info["graph_gemm_nodes"] != eng.gemm_ops():
+        raise AssertionError(f"{what}: {info['graph_gemm_nodes']} graph "
+                             f"GEMM nodes, {eng.gemm_ops()} gemm ops")
+    log(f"{what}: clean in {wall_s:.2f} s (host clock, one eager sweep "
+        f"under the op layer + the capture's record): {layers['ops']} ops "
+        f"dispatched, {layers['eager']} permutes eager = {layers['graph']} "
+        f"in the graph = the plan's; wire {info['wire_blocks']} blocks = "
+        f"planned ({info['wire_blocks'] * eng.b ** 2 * 8} B f64; JAX's "
+        f"yardstick {info['plan_wire_blocks']}); "
+        f"{info['graph_gemm_nodes']} graph GEMM nodes = gemm_ops; "
+        f"{launches} block_gemm launches")
+    return dict(wall_s=wall_s, dispatched_ops=layers["ops"],
+                permutes=layers["eager"], graph_permutes=layers["graph"],
+                wire_blocks=info["wire_blocks"],
+                plan_wire_blocks=info["plan_wire_blocks"],
+                graph_gemm_nodes=info["graph_gemm_nodes"],
+                graph_kernels=info["graph_kernels"], launches=launches)
+
+
+def mutated_lint(dev):
+    """Phase 3e's negative controls: a Laplacian session on the card
+    whose overlapped permute helper ships one round's first pair to a
+    rank that receives nothing there must fail
+    ``lint_compiled(verify_compiled="error")`` — the lint is not vacuous
+    on the card. The mutated lanes are built before the sweep runs, so
+    nothing is allocated from the host inside the capture. Then a fresh
+    session whose device index table alone is retargeted (its host list,
+    which the records come from, left right) must fail the same way, on
+    the table check."""
+    import copy
+
+    import torch
+    from repro_torch.core import pselinv_dist as pd
+    from repro_torch.core import sparse
+    from repro_torch.core.engine import Grid, PSelInvEngine
+    from repro_torch.core.verify import PlanVerificationError
+
+    PSelInvEngine.clear_cache()
+    eng = PSelInvEngine.analyze(sparse.laplacian_2d(16, 8), b=8,
+                                grid=Grid(4, 2), device=dev)
+    ln = next(x for x in eng.tables.comm if x is not None and
+              len(x.perm) > 1)
+    busy = {d for _, d in ln.perm} | {ln.perm[0][0]}
+    free = next(r for r in range(8) if r not in busy)
+    bad = copy.copy(ln)
+    bad.perm = [(ln.perm[0][0], free)] + ln.perm[1:]
+    bad.dst = torch.tensor([d for _, d in bad.perm], device=dev)
+    real = pd._permute_lanes
+    pd._permute_lanes = (lambda payload, x: real(payload, bad)
+                         if x is ln else real(payload, x))
+    zero_counts()
+    try:
+        eng.lint_compiled(dtype=torch.float64, verify_compiled="error")
+    except PlanVerificationError as e:
+        codes = sorted({d.code for d in e.diagnostics
+                        if d.severity == "error"})
+    else:
+        raise AssertionError("a retargeted pair linted clean on the card")
+    finally:
+        pd._permute_lanes = real
+    torch.cuda.synchronize()
+    PSelInvEngine.clear_cache()
+    if "hlo/perm-unknown" not in codes:
+        raise AssertionError(f"the retargeted pair raised {codes}, not "
+                             "hlo/perm-unknown")
+    log(f"lint negative control (laplacian_2d(16,8) b=8 on the card, "
+        f"{ln.where}'s first pair retargeted to rank {free}): raised "
+        f"PlanVerificationError with {codes}")
+    eng = PSelInvEngine.analyze(sparse.laplacian_2d(16, 8), b=8,
+                                grid=Grid(4, 2), device=dev)
+    ln = next(x for x in eng.tables.comm if x is not None and
+              len(x.perm) > 1)
+    ln.dst[0] = free
+    try:
+        eng.lint_compiled(dtype=torch.float64, verify_compiled="error")
+    except PlanVerificationError as e:
+        table_codes = sorted({d.code for d in e.diagnostics
+                              if d.severity == "error"})
+        table_msg = str(e.diagnostics[0])
+    else:
+        raise AssertionError("a retargeted device table linted clean on "
+                             "the card")
+    torch.cuda.synchronize()
+    launches = read_counts()["block_gemm"]
+    PSelInvEngine.clear_cache()
+    if table_codes != ["hlo/perm-unknown"] or \
+            "uploaded index table" not in table_msg:
+        raise AssertionError(f"the retargeted device table raised "
+                             f"{table_codes}: {table_msg}")
+    log(f"lint negative control 2 ({ln.where}'s device dst table alone "
+        f"retargeted to rank {free}): raised PlanVerificationError with "
+        f"{table_codes} from the table check")
+    return dict(codes=codes, where=ln.where, table_codes=table_codes,
+                launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1551,18 +1703,52 @@ def _collective(dev, name, fn, x, expect):
                 staged=p2p.LOG.staged_bytes)
 
 
+def _ranked_solves(sweep, Lh, Dinv, dev, reps):
+    """``reps`` ranked solves barrier to barrier (host clock ending in a
+    synchronize), each with its launch counts and send log zeroed right
+    before it; returns the runs and the last result."""
+    import torch.distributed as dist
+    from repro_torch.comm import p2p
+    from repro_torch.kernels import block_gemm as bg
+
+    runs, out = [], None
+    for _ in range(reps):
+        out = None
+        dist.barrier()
+        _sync(dev)
+        p2p.LOG.clear()
+        bg.launches = 0
+        bg.plans.clear()
+        t1 = time.perf_counter()
+        out = sweep(Lh, Dinv)
+        _sync(dev)
+        t2 = time.perf_counter()
+        dist.barrier()
+        t3 = time.perf_counter()
+        runs.append(dict(
+            wall_s=t2 - t1, barrier_s=t3 - t1, rounds_s=p2p.LOG.wait_s,
+            sync_s=p2p.LOG.sync_s,
+            launches=bg.launches,
+            variants=sorted({k[0] for k in bg.plans}),
+            sent=p2p.LOG.sent(), received=p2p.LOG.received(),
+            staged=p2p.LOG.staged_bytes, log=p2p.LOG.snapshot()))
+    return runs, out
+
+
 def rank_main(rank, A, b, grid, tmp, hashes, reps, coll_numel, device,
-              t_spawn):
+              t_spawn, ls_hashes=None, ls_reps=2):
     """One rank of phase 8, in its own process: analyze (every rank;
     deterministic), this rank's view of the overlapped tables, its value
     shards from ``tmp``; then ``reps`` ranked f64 solves barrier to
     barrier (host clock ending in a synchronize), each with its launch
     counts and send log zeroed right before it; the result's sha1 against
     the single-process shard's (``hashes``; a differing shard is saved to
-    ``tmp`` for the parent); then the tree collectives on a
-    ``coll_numel``-element f32 tensor of integer values. ``stamps`` are
-    wall-clock seconds since the parent spawned (``t_spawn``), at each
-    stage's end."""
+    ``tmp`` for the parent). With ``ls_hashes`` the same for the
+    level-serial sweep (``make_sweep_ranked``): a warm-up, then
+    ``ls_reps`` solves, their send logs kept for the parent's
+    ``lint_ranked`` and their shards against ``ls_hashes``. Then the tree collectives on a ``coll_numel``-element
+    f32 tensor of integer values. ``stamps`` are wall-clock seconds since
+    the parent spawned (``t_spawn``), at each stage's end."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1571,9 +1757,12 @@ def rank_main(rank, A, b, grid, tmp, hashes, reps, coll_numel, device,
     from repro_torch.core.pselinv_dist import (analyze_structure,
                                                build_program,
                                                make_sweep_overlapped_ranked,
-                                               rank_tables, upload_tables)
+                                               make_sweep_ranked,
+                                               rank_exec_tables,
+                                               rank_tables,
+                                               upload_exec_tables,
+                                               upload_tables)
     from repro_torch.core.trees import TreeKind, build_tree
-    from repro_torch.kernels import block_gemm as bg
 
     stamps = {"process": _IMPORTED - t_spawn,
               "started": time.time() - t_spawn}
@@ -1598,31 +1787,36 @@ def rank_main(rank, A, b, grid, tmp, hashes, reps, coll_numel, device,
     sweep(Lh, Dinv)                      # warm-up: cuBLAS, pinned buffers
     _sync(dev)
     stamps["warm"] = time.time() - t_spawn
-    runs = []
-    for _ in range(reps):
-        dist.barrier()
-        _sync(dev)
-        p2p.LOG.clear()
-        bg.launches = 0
-        bg.plans.clear()
-        t1 = time.perf_counter()
-        out = sweep(Lh, Dinv)
-        _sync(dev)
-        t2 = time.perf_counter()
-        dist.barrier()
-        t3 = time.perf_counter()
-        runs.append(dict(
-            wall_s=t2 - t1, barrier_s=t3 - t1, rounds_s=p2p.LOG.wait_s,
-            sync_s=p2p.LOG.sync_s,
-            launches=bg.launches,
-            variants=sorted({k[0] for k in bg.plans}),
-            sent=p2p.LOG.sent(), received=p2p.LOG.received(),
-            staged=p2p.LOG.staged_bytes))
+    runs, out = _ranked_solves(sweep, Lh, Dinv, dev, reps)
+    for run in runs:
+        run.pop("log")
     stamps["solved"] = time.time() - t_spawn
     digest = _sha1(out)
     if digest != hashes[rank]:
         np.save(tmp / f"out{rank}.npy", out.cpu().numpy())
-    del out, Lh, Dinv
+    del out, sweep, tabs
+    ls = None
+    if ls_hashes is not None:
+        t0 = time.perf_counter()
+        prog_ls = build_program(bs, nb, b, *grid, overlap=False)
+        sweep = make_sweep_ranked(prog_ls, rank_exec_tables(
+            upload_exec_tables(prog_ls, "cpu"), rank, dev), rank)
+        ls_analyze_s = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        sweep(Lh, Dinv)
+        _sync(dev)
+        warm_s = time.perf_counter() - t0
+        stamps["ls_warm"] = time.time() - t_spawn
+        ls_runs, out = _ranked_solves(sweep, Lh, Dinv, dev, ls_reps)
+        ls_digest = _sha1(out)
+        if ls_digest != ls_hashes[rank]:
+            np.save(tmp / f"ls_out{rank}.npy", out.cpu().numpy())
+        ls = dict(analyze_s=ls_analyze_s, warm_s=warm_s, runs=ls_runs,
+                  sha1=ls_digest, bitwise=ls_digest == ls_hashes[rank])
+        stamps["ls_solved"] = time.time() - t_spawn
+        del out, sweep
+    del Lh, Dinv
 
     base = torch.arange(coll_numel, device=dev) % 1024
     x = (base + rank).float()
@@ -1644,7 +1838,7 @@ def rank_main(rank, A, b, grid, tmp, hashes, reps, coll_numel, device,
     stamps["collectives"] = time.time() - t_spawn
     return dict(rank=rank, analyze_s=analyze_s, runs=runs, sha1=digest,
                 bitwise=digest == hashes[rank], collectives=coll,
-                stamps=stamps)
+                stamps=stamps, level_serial=ls)
 
 
 def _diag_sum_per_rank(Ainv, U, lv):
@@ -1684,8 +1878,89 @@ def differing_op(eng, vals, rows):
             "differ")
 
 
+def ranked_level_serial(setting, eng_ls, rows, scale, reps):
+    """Phase 8's level-serial half, read off the ranks' rows: every
+    shard bitwise the single-process level-serial solve's, else within
+    1e-12·max|A⁻¹|; each solve's sent
+    bytes the plan's wire (``expected_wire_blocks·b²·8``, the session's
+    moved bytes) and its send logs held to the plan round by round
+    (``lint_ranked``); ``gemm_ops`` DMMA launches a rank a solve."""
+    from repro_torch.core.exec_verify import expected_wire_blocks, lint_ranked
+
+    P = len(rows)
+    gemm_ops = eng_ls.gemm_ops()
+    want = expected_wire_blocks(eng_ls.program) * eng_ls.b ** 2 * 8
+    moved = eng_ls.moved()[1]
+    lss = [row["level_serial"] for row in rows]
+    if want != moved:
+        raise AssertionError(f"{setting} level-serial: the plan's wire "
+                             f"{want} B, the session moves {moved:.0f} B")
+    bad = [row["rank"] for row, ls in zip(rows, lss) if not ls["bitwise"]
+           and not ls["max_abs_diff"] <= 1e-12 * scale]
+    if bad:
+        raise AssertionError(f"{setting} ranked level-serial: ranks {bad} "
+                             "differ from the single-process level-serial "
+                             f"solve by more than 1e-12·max|A⁻¹| "
+                             f"({scale:.3e})")
+    lint = []
+    for i in range(reps):
+        runs = [ls["runs"][i] for ls in lss]
+        if [x["launches"] for x in runs] != [gemm_ops] * P or any(
+                x["variants"] != ["dmma_f64"] for x in runs):
+            raise AssertionError(f"{setting} ranked level-serial solve {i}: "
+                                 f"{[x['launches'] for x in runs]} GEMM "
+                                 f"launches, plan has {gemm_ops} a rank, "
+                                 "all dmma_f64")
+        sent = sum(x["sent"][1] for x in runs)
+        recv = sum(x["received"][1] for x in runs)
+        if not sent == recv == want:
+            raise AssertionError(f"{setting} ranked level-serial solve {i}:"
+                                 f" sent {sent} B, received {recv} B, the "
+                                 f"plan's wire is {want} B")
+        res = lint_ranked([x.pop("log") for x in runs], eng_ls.program)
+        if res.errors:
+            raise AssertionError(f"{setting} ranked level-serial solve {i}:"
+                                 " " + "; ".join(map(str, res.errors)))
+        lint.append({k: v for k, v in res.info.items() if k != "layers"})
+    solve_ms = [max(ls["runs"][i]["barrier_s"] for ls in lss) * 1e3
+                for i in range(reps)]
+    for row, ls in zip(rows, lss):
+        walls = [x["wall_s"] * 1e3 for x in ls["runs"]]
+        wires = [(x["rounds_s"] - x["sync_s"]) * 1e3 for x in ls["runs"]]
+        syncs = [x["sync_s"] * 1e3 for x in ls["runs"]]
+        r0 = ls["runs"][0]
+        log(f"  rank {row['rank']} level-serial: shard "
+            + ("bitwise equal to the single-process one" if ls["bitwise"]
+               else f"differs, max|Δ| {ls['max_abs_diff']:.3e}")
+            + f"; analyze {ls['analyze_s']:.2f} s, warm-up "
+            f"{ls['warm_s']:.2f} s; sent {r0['sent'][0]} msgs {r0['sent'][1]} B, received "
+            f"{r0['received'][0]} msgs {r0['received'][1]} B, staged "
+            f"{r0['staged']} B a solve; wall "
+            f"{[round(w, 1) for w in walls]} ms, of it on the wire "
+            f"{[round(w, 1) for w in wires]} ms and waiting for the card "
+            f"before a send {[round(w, 1) for w in syncs]} ms")
+    rounds = lint[0]["ppermute_count"]
+    log(f"{setting}: ranked level-serial solve "
+        f"{[round(x, 1) for x in solve_ms]} ms barrier to barrier (max over "
+        f"ranks), {rounds} point-to-point rounds; sent {want} B a solve = "
+        f"the plan's wire = the session's moved bytes; every send log "
+        f"held to the plan round by round (lint_ranked clean); {P} × "
+        f"{gemm_ops} block GEMM launches a solve, all dmma_f64; shards "
+        + ("all bitwise equal to the single-process level-serial solve"
+           if all(ls["bitwise"] for ls in lss) else
+           f"within max|Δ| {max(ls['max_abs_diff'] for ls in lss):.3e} of "
+           f"the single-process level-serial solve (1e-12·max|A⁻¹| = "
+           f"{1e-12 * scale:.3e})"))
+    return dict(solve_ms=solve_ms, rounds=rounds, sent_bytes=want,
+                gemm_ops=gemm_ops, lint=lint,
+                launches=sum(x["launches"] for ls in lss
+                             for x in ls["runs"]),
+                bitwise=[ls["bitwise"] for ls in lss],
+                max_abs_diff=max(ls["max_abs_diff"] for ls in lss))
+
+
 def multirank_path(dev, setting, state, b, grid=(4, 2), reps=3,
-                   coll_numel=COLL_NUMEL):
+                   coll_numel=COLL_NUMEL, ls_reps=2):
     """Phase 8: phase 3's FEM f64 solve by ``pr·pc`` rank processes on
     the one card (``comm.p2p.spawn``, gloo, CUDA payloads staged through
     pinned host memory), each over its own view of the tables and its own
@@ -1693,7 +1968,13 @@ def multirank_path(dev, setting, state, b, grid=(4, 2), reps=3,
     every rank's A⁻¹ shard against phase 3's single-process solve
     (bitwise, else max|Δ| within 1e-12·max|A⁻¹|), each solve to
     ``gemm_ops`` launches a rank, the ranks' sent bytes to the session's
-    moved bytes and ``executed_wire_bytes``; then times three tree
+    moved bytes and ``executed_wire_bytes``; then the level-serial
+    sweep by the same ranks (``ls_reps`` timed solves after a plain
+    warm-up) against a single-process level-serial solve of the same
+    values, its send logs held to the plan (``lint_ranked``; the op-layer
+    check of a rank's sweep runs only in the card test
+    ``test_ranked_level_serial_on_the_card``); then times
+    three tree
     collectives on ``coll_numel`` f32 elements a rank, whose integer
     results must be exact."""
     import shutil
@@ -1701,6 +1982,7 @@ def multirank_path(dev, setting, state, b, grid=(4, 2), reps=3,
 
     import numpy as np
     from repro_torch.comm import p2p
+    from repro_torch.core.engine import Grid, PSelInvEngine
     from repro_torch.core.simulator import executed_wire_bytes
 
     eng, vals, out, A = (state[k] for k in ("eng", "vals", "out", "A"))
@@ -1709,18 +1991,26 @@ def multirank_path(dev, setting, state, b, grid=(4, 2), reps=3,
     if executed_wire_bytes(eng) != moved:
         raise AssertionError(f"{setting}: executed_wire_bytes "
                              f"{executed_wire_bytes(eng)} != moved {moved}")
+    # the single-process level-serial solve the ranked one is held to
+    eng_ls = PSelInvEngine.analyze(A, b=b, grid=Grid(*grid),
+                                   options=_options("level_serial"),
+                                   device=dev)
+    out_ls = eager_solve(eng_ls, vals, out.dtype)
+    _sync(dev)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
     try:
         t0 = time.perf_counter()
-        hashes = []
+        hashes, ls_hashes = [], []
         for r in range(P):
             np.save(tmp / f"lh{r}.npy", vals.Lh[r].cpu().numpy())
             np.save(tmp / f"dinv{r}.npy", vals.Dinv[r].cpu().numpy())
             hashes.append(_sha1(out[r]))
+            ls_hashes.append(_sha1(out_ls[r]))
         stage_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         rows = p2p.spawn(rank_main, P, A, b, grid, tmp, hashes, reps,
-                         coll_numel, str(dev), time.time(), timeout=600)
+                         coll_numel, str(dev), time.time(), ls_hashes,
+                         ls_reps, timeout=600)
         spawn_s = time.perf_counter() - t0
         scale = out.abs().max().item()
         for row in rows:
@@ -1729,10 +2019,20 @@ def multirank_path(dev, setting, state, b, grid=(4, 2), reps=3,
                 got = np.load(tmp / f"out{row['rank']}.npy")
                 row["max_abs_diff"] = float(np.abs(
                     got - out[row["rank"]].cpu().numpy()).max())
+            ls = row["level_serial"]
+            ls["max_abs_diff"] = 0.0
+            if not ls["bitwise"]:
+                got = np.load(tmp / f"ls_out{row['rank']}.npy")
+                ls["max_abs_diff"] = float(np.abs(
+                    got - out_ls[row["rank"]].cpu().numpy()).max())
         diff_op = (None if all(row["bitwise"] for row in rows)
                    else differing_op(eng, vals, rows))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    level_serial = ranked_level_serial(setting, eng_ls, rows, scale,
+                                       ls_reps)
+    del out_ls, eng_ls
+    PSelInvEngine.clear_cache()
 
     gemm_ops = eng.gemm_ops()
     stages = {k: max(row["stamps"][k] for row in rows)
@@ -1812,8 +2112,10 @@ def multirank_path(dev, setting, state, b, grid=(4, 2), reps=3,
             f"{coll[name]['staged']} B")
     return dict(setting=setting, ranks=P, gemm_ops=gemm_ops, stages=stages,
                 differing_op=diff_op, max_ainv=scale,
+                level_serial=level_serial,
                 launches=sum(x["launches"] for row in rows
-                             for x in row["runs"]),
+                             for x in row["runs"])
+                + level_serial["launches"],
                 moved_bytes=moved, solve_ms=solve_ms,
                 single_ms=state["solve_ms"], spawn_s=spawn_s,
                 stage_s=stage_s, collectives=coll,
@@ -2153,6 +2455,7 @@ def main() -> int:
                                     captures=dg["capture"])
     release(dg)
     settings = [fem, dg]
+    lint_neg = mutated_lint(dev)
     serial = serial_path(dev, blocks)
     del blocks
     serve = {"fem": fem["serve"], "traffic": traffic_path(dev),
@@ -2190,8 +2493,9 @@ def main() -> int:
         "block_gemm": sum(s_["launches"] for s_ in settings)
         + sum(r["launches"] for s_ in settings
               for r in s_["executors"].values())
-        + sum(r["launches"] for s_ in settings
+        + sum(r["launches"] + r["lint"]["launches"] for s_ in settings
               for r in s_["capture"].values())
+        + lint_neg["launches"]
         + serial["backends"]["cuda"]["launches"]["block_gemm"]
         + serve["fem"]["launches"] + serve["traffic"]["launches"]
         + fem["multirank"]["launches"]
@@ -2238,7 +2542,8 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "build_s": build_s,
          "wall_s": wall_s, "kernel_rows": rows, "new_kernel_rows": new_rows,
-         "main_path": settings, "serial": serial, "serve": serve,
+         "main_path": settings, "lint_negative": lint_neg,
+         "serial": serial, "serve": serve,
          "ops_path": ops,
          "sass": sass, "ptxas": ptxas, "kernels": kernels}, indent=1,
         default=str))

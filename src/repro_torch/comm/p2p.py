@@ -20,7 +20,9 @@ mesh; here every rank is a process of a ``torch.distributed`` group:
 * :func:`reduce_scatter` / :func:`all_gather` — the two gloo
   collectives of the hierarchical all-reduce, tiled along dim 0 as
   ``lax.psum_scatter(..., tiled=True)`` / ``lax.all_gather(...,
-  tiled=True)``, on the same transport.
+  tiled=True)``, on the same transport. Inside a recorded sweep
+  (``core.exec_ir.record``) each reports itself: a collective there is
+  a stray one, which the executed-communication verifier flags.
 
 **The card's transport.** gloo moves host memory: it reads a tensor
 through its data pointer on the host. It does not refuse a CUDA tensor
@@ -50,6 +52,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from ..core import exec_ir
 
 __all__ = ["SendLog", "LOG", "spawn", "ppermute", "reduce_scatter",
            "all_gather", "global_rank"]
@@ -92,6 +96,14 @@ class SendLog:
         me = dist.get_rank() if rank is None else rank
         m = [n for _, _, d, n in self.entries if d == me]
         return len(m), sum(m)
+
+    def snapshot(self, rank: Optional[int] = None) -> dict:
+        """This log as a plain dict (``rank``, ``entries``, ``rounds``,
+        ``staged_bytes``) — what ``core.exec_verify.lint_ranked`` reads
+        once the ranks' logs are gathered."""
+        return dict(rank=dist.get_rank() if rank is None else rank,
+                    entries=list(self.entries), rounds=self.rounds,
+                    staged_bytes=self.staged_bytes)
 
 
 #: this process's send log (zero it with ``LOG.clear()`` right before the
@@ -138,7 +150,8 @@ def _to_host(role: str, x: torch.Tensor) -> torch.Tensor:
     torch.cuda.current_stream(x.device).synchronize()
     LOG.sync_s += time.perf_counter() - t0
     buf = _pinned(role, x.dtype, x.numel())
-    buf.copy_(x.reshape(-1))
+    with exec_ir.staging():
+        buf.copy_(x.reshape(-1))
     LOG.staged_bytes += x.numel() * x.element_size()
     return buf
 
@@ -159,7 +172,8 @@ def _to_device(role: str, h: torch.Tensor, like: torch.Tensor,
     if like.device.type != "cuda":
         return h.view(shape)
     out = torch.empty(shape, dtype=like.dtype, device=like.device)
-    out.view(-1).copy_(h, non_blocking=True)
+    with exec_ir.staging():
+        out.view(-1).copy_(h, non_blocking=True)
     ev = torch.cuda.Event()
     ev.record()
     _buffers[(role, like.dtype)][1] = ev
@@ -218,6 +232,9 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     the group's sum of ``x``, split along dim 0 into group-size tiles,
     rank i keeping tile i. ``x.shape[0]`` must divide evenly."""
     _check_backend(group)
+    rec = exec_ir.active()
+    if rec is not None:
+        rec.collective("reduce-scatter", x)
     n = dist.get_world_size(group)
     if x.shape[0] % n:
         raise ValueError(f"leading dim {x.shape[0]} is not divisible by "
@@ -235,6 +252,9 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """``lax.all_gather(x, axis, axis=0, tiled=True)``: every rank's
     ``x`` concatenated along dim 0 in rank order."""
     _check_backend(group)
+    rec = exec_ir.active()
+    if rec is not None:
+        rec.collective("all-gather", x)
     n = dist.get_world_size(group)
     t0 = time.perf_counter()
     h = _to_host("ag_in", x)

@@ -20,7 +20,10 @@ nothing falls back to the eager sweep.
 
 :func:`kernel_census` reads the kernel nodes of a captured graph
 through the CUDA driver (``cuGraphGetNodes`` …, ``cuFuncGetName``): what
-one replay launches, counted without running it."""
+one replay launches, counted without running it. The permutes the sweep
+runs while it is captured are recorded (:mod:`.exec_ir`, from host lists
+only: nothing synchronizes inside the capture) — what every replay
+executes, which ``engine.lint_compiled`` holds to the plan."""
 from __future__ import annotations
 
 import collections
@@ -33,6 +36,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..kernels import block_gemm as _block_gemm
+from . import exec_ir
 
 __all__ = ["GraphRunner", "ReplayGate", "capture", "kernel_census",
            "pool_bytes"]
@@ -115,7 +119,8 @@ class GraphRunner:
     ``warmup_ms`` and ``capture_ms`` (host clock, each ending in a
     synchronize), the graph's kernel nodes by function name
     (``kernels``), the block-GEMM wrapper's launches recorded into it
-    (``gemm_launches``) and their plans (``gemm_plans``). ``sweep`` is
+    (``gemm_launches``) and their plans (``gemm_plans``), and the permutes
+    recorded while it was captured (``ops``, :mod:`.exec_ir`). ``sweep`` is
     the captured sweep: it holds the device tables whose addresses the
     graph's kernels read, so they live as long as the runner."""
     graph: "torch.cuda.CUDAGraph"
@@ -130,6 +135,7 @@ class GraphRunner:
     kernels: collections.Counter
     gemm_launches: int
     gemm_plans: collections.Counter
+    ops: list = None
     replays: int = 0
 
     @property
@@ -204,7 +210,8 @@ def capture(sweep: Callable, shape: Tuple[int, ...], dtype: torch.dtype,
     plans0 = collections.Counter(_block_gemm.plans)
     t0 = time.perf_counter()
     with torch.cuda.graph(graph, pool=pool,
-                          capture_error_mode="thread_local"):
+                          capture_error_mode="thread_local"), \
+            exec_ir.record() as rec:
         # one block of the warm-up's peak, freed at once: the capture's
         # allocations carve it up and merge back into it. Without it each
         # new size opens a segment of its own (FEM: 12 GB of segments for
@@ -222,4 +229,5 @@ def capture(sweep: Callable, shape: Tuple[int, ...], dtype: torch.dtype,
     return GraphRunner(graph=graph, sweep=sweep, Lh=Lh, Dinv=Dinv, out=out,
                        batched=batched, gate=gate, warmup_ms=warmup_ms,
                        capture_ms=capture_ms, kernels=kernels,
-                       gemm_launches=gemm_launches, gemm_plans=gemm_plans)
+                       gemm_launches=gemm_launches, gemm_plans=gemm_plans,
+                       ops=rec.ops)

@@ -19,7 +19,9 @@ engine: the overlapped round schedule by default,
 ``PlanOptions(overlap=False)`` the level-serial sweep,
 ``PlanOptions(stream=True)`` the uniform round stream.
 ``round_schedule``/``simulate`` give the α-β model's view of the
-session's schedule, ``profile_rounds`` a measured per-round replay.
+session's schedule, ``profile_rounds`` a measured per-round replay, and
+``lint_compiled`` holds the communication the session's sweep executes
+— eagerly and as captured — to its plan (``exec_verify``).
 
 All ``P = pr·pc`` ranks of the grid run on the one device as a leading
 rank axis of every tensor (see ``pselinv_dist``); a batch of B
@@ -32,6 +34,7 @@ present; pass ``device="cpu"`` to run the plain versions of the kernels
 on the host (the tests do)."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import threading
@@ -47,6 +50,7 @@ import torch
 from ..kernels import block_gemm as _block_gemm
 from ..obs.registry import REGISTRY
 from ..obs.trace import TRACER
+from . import exec_ir
 from .capture import GraphRunner, ReplayGate, capture, pool_bytes
 from .device import resolve_device
 from .plan import PlanOptions, peak_arena_blocks, ppermute_round_count
@@ -191,6 +195,8 @@ class PSelInvEngine:
     _fns: Dict[Tuple, object] = field(default_factory=dict, repr=False)
     _compile_metrics: Dict[Tuple, Dict[str, object]] = \
         field(default_factory=dict, repr=False)
+    _exec_lint: Dict[Tuple, object] = field(default_factory=dict,
+                                            repr=False)
     _jit_lock: threading.RLock = field(default_factory=threading.RLock,
                                        repr=False)
     _pool: object = field(default=None, repr=False)
@@ -224,7 +230,12 @@ class PSelInvEngine:
         :class:`BlockStructure`; returns the cached engine when an
         identical (structure, b, grid, options, device) session exists.
         ``verify`` overrides ``options.verify`` (the PlanLint mode);
-        ``verify_compiled`` must stay ``"off"`` (HloLint is not ported).
+        ``verify_compiled`` overrides ``options.verify_compiled``, the
+        mode of the executed-communication verifier that
+        ``build_program`` runs over the program's own sweep on ``meta``
+        tensors (``core/exec_verify.py``, the role of the JAX package's
+        HloLint; :meth:`lint_compiled` adds the session's device and its
+        captured graphs).
 
         The options pick the executor whose tables are uploaded: the
         overlapped round schedule (default), the level-serial sweep
@@ -570,10 +581,14 @@ class PSelInvEngine:
         class's own runner is read when the session has one, else a
         fresh uncounted one is built (``trace_count`` never moves).
 
-        The JAX engine's ``jaxpr_lines``, ``hlo_bytes`` and
-        ``collective_bytes`` have no twin here — there is no traced or
-        lowered program text, and the port's collectives are the moves
-        ``moved_bytes`` counts — so each is None."""
+        ``ppermute_count`` and ``collective_bytes`` are the JAX engine's
+        census of its compiled permutes, taken here from the executed
+        ones (:mod:`.exec_ir`): those recorded while the class's graph
+        was captured on the card, or those of one recorded eager sweep on
+        the CPU — the permutes one solve executes, and one rank's payload
+        bytes summed over them. ``jaxpr_lines`` and ``hlo_bytes`` have no
+        twin — there is no traced or lowered program text — and are
+        None."""
         key = (batched, int(batch_size) if batched else 1, dtype)
         with self._jit_lock:
             m = self._compile_metrics.get(key)
@@ -584,15 +599,110 @@ class PSelInvEngine:
                 r = self._build_runner(*key)
             rounds, moved = self.moved()
             cap = isinstance(r, GraphRunner)
+            perms = [op for op in (r.ops if cap else
+                                   self._eager_record(*key).ops)
+                     if op.op == "collective-permute"]
             m = {"warmup_ms": r.warmup_ms if cap else None,
                  "capture_ms": r.capture_ms if cap else None,
                  "graph_kernels": r.graph_kernels if cap else None,
                  "graph_gemm_nodes": r.gemm_nodes if cap else None,
                  "comm_rounds": rounds, "moved_bytes": moved,
                  "jaxpr_lines": None, "hlo_bytes": None,
-                 "collective_bytes": None}
+                 "ppermute_count": len(perms),
+                 "collective_bytes": float(sum(op.nbytes
+                                               for op in perms))}
             self._compile_metrics[key] = m
         return m
+
+    def _eager_record(self, batched: bool, B: int, dtype: torch.dtype,
+                      ops: bool = False):
+        """One eager sweep of the shape class on zero values, under the
+        recorder (and, with ``ops``, the op layer): what it executed."""
+        shape = self._class_shape(batched, B)
+        Lh = torch.zeros(shape, dtype=dtype, device=self.device)
+        Dinv = torch.zeros(shape, dtype=dtype, device=self.device)
+        sweep = self.sweep(batched)
+        with exec_ir.record() as rec, (exec_ir.ops_layer(rec) if ops
+                                       else contextlib.nullcontext()):
+            sweep(Lh, Dinv)
+        return rec
+
+    def lint_compiled(self, batched: bool = False,
+                      dtype: torch.dtype = torch.float32,
+                      batch_size: int = 1, *,
+                      verify_compiled: str | None = None):
+        """The executed-communication verifier (``core/exec_verify.py``)
+        over the session's sweep on its own device, at three layers —
+        the twin of the JAX engine's three-layer HloLint:
+
+        1. the op layer of one eager sweep of the shape class (zero
+           values): stray collectives, host transfers, f64 narrowing;
+        2. the permutes that sweep executed, held to the plan — pairs,
+           rounds (each once; a stream slot at its active steps), lane
+           widths, and wire blocks against :func:`~.exec_verify.
+           port_wire_blocks` and ``executed_wire_bytes`` — and the
+           session's uploaded index tables, read back once, held to the
+           host lists those records are made from
+           (:func:`~.exec_verify.check_tables`);
+        3. on the card, the permutes recorded while the class's CUDA
+           graph was captured — what every replay executes — held to the
+           plan the same way, and the graph's block-GEMM nodes to
+           :meth:`gemm_ops`. The class's own runner is read when the
+           session has one, else a fresh uncounted one is captured. On
+           the CPU there is no graph: ``result.info["layers"]["graph"]``
+           says the layer is absent.
+
+        Measured once per (batched, B, dtype) class and cached. Returns
+        an :class:`~.exec_verify.LintResult` — the diagnostics, as a
+        list, with ``info`` (layers, recorded and expected wire blocks,
+        op counts, ``lint_s``). ``verify_compiled`` applies an
+        enforcement mode (``"error"`` raises
+        :class:`~.verify.PlanVerificationError` on any ERROR diagnostic,
+        ``"warn"`` warns once; None just returns the result)."""
+        from .exec_verify import (LintResult, check_collectives,
+                                  check_tables, lint_ops)
+        from .verify import _err, enforce_verification
+
+        key = (batched, int(batch_size) if batched else 1, dtype)
+        with self._jit_lock:
+            res = self._exec_lint.get(key)
+            if res is None:
+                t0 = time.perf_counter()
+                batch = key[1]
+                rec = self._eager_record(*key, ops=True)
+                res = lint_ops(rec, self.program, batch=batch,
+                               layer="eager")
+                res = LintResult(list(res) + check_tables(self.tables),
+                                 **res.info)
+                layers = {"ops": rec.dispatched,
+                          "eager": len(rec.permutes())}
+                if self.device.type == "cuda":
+                    r = self._fns.get(key)
+                    if r is None:
+                        r = self._build_runner(*key)
+                    graph = check_collectives(r.ops, self.program,
+                                              batch=batch, layer="graph")
+                    if r.gemm_nodes != self.gemm_ops():
+                        graph.append(_err(
+                            "hlo/loop-trip",
+                            f"graph holds {r.gemm_nodes} block-GEMM nodes "
+                            f"but the plan has {self.gemm_ops()} GEMM ops"))
+                    layers["graph"] = len([op for op in r.ops if op.op ==
+                                           "collective-permute"])
+                    res = LintResult(list(res) + graph, **res.info)
+                    res.info.update(graph_gemm_nodes=r.gemm_nodes,
+                                    graph_kernels=r.graph_kernels)
+                else:
+                    layers["graph"] = "absent: no CUDA graph on the CPU"
+                res.info.update(layers=layers, gemm_ops=self.gemm_ops(),
+                                lint_s=time.perf_counter() - t0)
+                self._exec_lint[key] = res
+        if verify_compiled is not None:
+            enforce_verification(
+                res, mode=verify_compiled,
+                where=f"executed sweep (nb={self.nb}, "
+                      f"grid={self.grid.pr}x{self.grid.pc})")
+        return res
 
     def graph_bytes(self) -> int:
         """Device bytes the session's graphs hold: its graph memory pool

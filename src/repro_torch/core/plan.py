@@ -134,16 +134,17 @@ class PlanOptions:
     diagnostic, ``"warn"`` reduces the report to one ``warnings.warn``,
     ``"off"`` skips the static pass.
 
-    ``verify_compiled``: the HloLint mode (``core/hlo_verify.py``)
-    applied to the *compiled* layers — the traced jaxpr and lowered
-    StableHLO of the program's own sweep, traced on an abstract mesh at
-    ``build_program`` time (no devices needed; same three modes).
-    Default ``"off"``: the pass re-traces and re-lowers the whole sweep
-    (seconds, not microseconds), so it is opt-in per session —
-    ``tools/hlo_lint.py``, ``tools/plan_lint.py --compiled`` and the
-    tier-1 conformance tests run it over every shipped shape, and
-    ``PSelInvEngine.lint_compiled`` adds the optimized-HLO layer from a
-    real XLA compile."""
+    ``verify_compiled``: the mode of the executed-communication
+    verifier (``core/exec_verify.py``, the role of the JAX package's
+    HloLint) at ``build_program`` time: the program's own sweep runs
+    once on ``meta`` tensors (no card, no arithmetic; same three modes)
+    and the permutes it executes are held to the tables. Default
+    ``"off"``: the pass runs the whole sweep's Python once, so it is
+    opt-in per session — ``python -m repro_torch.tools.exec_lint``,
+    ``python -m repro_torch.tools.plan_lint --compiled`` and the tier-1
+    tests run it over every shipped shape, and
+    ``PSelInvEngine.lint_compiled`` adds the session's device and its
+    captured CUDA graphs."""
     kind: TreeKind = TreeKind.SHIFTED
     overlap: bool = True
     coalesce_max: int = 8

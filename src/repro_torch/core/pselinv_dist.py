@@ -27,10 +27,16 @@ overlapped sweep the other way: each rank a process of a
                                   slots
               ``make_sweep_segments``  the overlapped sweep cut at round
                                   boundaries, for ``obs.rounds``
-  ranks       ``run_distributed`` the overlapped sweep by ``pr·pc`` rank
-                                  processes (``rank_tables``,
-                                  ``make_sweep_overlapped_ranked``), its
-                                  permutes as ``comm.p2p`` messages
+  ranks       ``run_distributed`` the overlapped sweep (``rank_tables``,
+                                  ``make_sweep_overlapped_ranked``) or the
+                                  level-serial one (``rank_exec_tables``,
+                                  ``make_sweep_ranked``) by ``pr·pc`` rank
+                                  processes, its permutes as ``comm.p2p``
+                                  messages
+
+Every executor reports the permutes it runs to an active
+:mod:`.exec_ir` record (the executed-communication verifier,
+:mod:`.exec_verify`), from host lists kept at upload.
 
 Every executor runs each level's masked GEMM in the hand-written
 block-GEMM kernel (``ops.pselinv_round_gemm``).
@@ -70,6 +76,7 @@ import torch
 from ..comm.p2p import ppermute
 from ..kernels.ops import pselinv_round_gemm
 from ..obs.trace import TRACER
+from . import exec_ir
 from .plan import (CommPlan, ExecPlan, OverlappedExec, PlanOptions,
                    build_plan, compile_exec, schedule_overlapped,
                    schedule_stream)
@@ -85,7 +92,9 @@ __all__ = ["PSelInvProgram", "build_program", "SweepTables",
            "upload_exec_tables", "upload_stream_tables", "make_sweep",
            "make_sweep_overlapped", "make_sweep_stream",
            "make_sweep_segments", "rank_tables",
-           "make_sweep_overlapped_ranked", "check_grid_devices",
+           "make_sweep_overlapped_ranked", "rank_exec_tables",
+           "make_sweep_ranked", "CommSlot", "RankRound",
+           "check_grid_devices",
            "prepare_inputs", "run_distributed",
            "validate_uniform_widths", "pad_nb", "analyze_structure",
            "check_values_pattern", "prepare_values", "prepare_values_many",
@@ -136,18 +145,19 @@ def build_program(bs: BlockStructure, nb: int, b: int, pr: int, pc: int,
 
     ``verify`` runs PlanLint (``core/verify.py``) over every artifact
     just compiled (``"error"`` raises, ``"warn"`` warns, ``"off"``
-    skips). ``verify_compiled`` must be ``"off"``: the compiled-artifact
-    pass (HloLint) checks XLA programs and has no counterpart here yet."""
+    skips). ``verify_compiled`` runs the executed-communication verifier
+    (``core/exec_verify.py``, the role of the JAX package's HloLint) in
+    the same three modes: the program's own sweep runs once on ``meta``
+    tensors (no card, no arithmetic) under the recorder and the op
+    layer, and its permutes are held to the tables just built. Default
+    ``"off"``, as in the JAX package: the pass runs the whole sweep's
+    Python once."""
     if options is not None:
         kind, overlap = options.kind, options.overlap
         coalesce_max, window = options.coalesce_max, options.window
         stream = options.stream
         verify = options.verify
         verify_compiled = options.verify_compiled
-    if verify_compiled != "off":
-        raise NotImplementedError(
-            f"verify_compiled={verify_compiled!r}: the compiled-program "
-            "lint (HloLint) is not ported; use verify_compiled='off'")
     if stream and not overlap:
         raise ValueError(
             "stream=True lowers the overlapped round stream — it "
@@ -175,6 +185,15 @@ def build_program(bs: BlockStructure, nb: int, b: int, pr: int, pc: int,
                 verify_program(prog), mode=verify,
                 where=f"build_program(nb={nb}, grid={pr}x{pc}, "
                       f"stream={stream}, overlap={overlap})")
+    if verify_compiled != "off":
+        from .exec_verify import lint_program
+        from .verify import enforce_verification
+        with TRACER.span("plan.verify_compiled", mode=verify_compiled):
+            enforce_verification(
+                lint_program(prog), mode=verify_compiled,
+                where=f"executed sweep of build_program(nb={nb}, "
+                      f"grid={pr}x{pc}, stream={stream}, "
+                      f"overlap={overlap})")
     return prog
 
 
@@ -213,11 +232,9 @@ class LaneTables:
     each masked in bounds where the other buffer is taken; the L̂
     select ``lh``; the scatter addresses ``sc``; the receiver-transpose
     and accumulate masks ``tm``/``am``; for the overlapped permute the
-    (src, dst) rank pairs, and for the stream's comm slots one
-    ``(src ranks, dst ranks, slot width)`` triple per active slot, each
-    pair kept only where the receiver takes that slot's arrival. One
-    rank's view (:func:`rank_tables`) keeps the permute's pairs as the
-    host list ``perm``."""
+    (src, dst) rank pairs, as tensors and as the host list ``perm``, and
+    its plan label ``where``; for the stream's comm slots one
+    :class:`CommSlot` per active slot."""
     width: int
     ga: torch.Tensor
     gl: torch.Tensor
@@ -229,9 +246,23 @@ class LaneTables:
     am: Optional[torch.Tensor] = None
     src: Optional[torch.Tensor] = None
     dst: Optional[torch.Tensor] = None
-    slots: List[Tuple[torch.Tensor, torch.Tensor, int]] = \
-        field(default_factory=list)
+    slots: List["CommSlot"] = field(default_factory=list)
     perm: Optional[List[Tuple[int, int]]] = None
+    where: str = ""
+
+
+@dataclass
+class CommSlot:
+    """One active comm slot of a stream step: slot ``si`` ships the
+    leading ``width`` lanes from ``src`` to ``dst`` for the pairs of its
+    static perm whose receiver keeps this slot's arrival at the step
+    (``recv_slot``); ``pairs`` is that host list, which the recorder
+    reads."""
+    si: int
+    width: int
+    pairs: List[Tuple[int, int]]
+    src: torch.Tensor
+    dst: torch.Tensor
 
 
 @dataclass
@@ -257,9 +288,17 @@ class PhaseRounds:
     flattened over the rank axis as ``src·len(source) + gather slot`` and
     ``dst·len(target) + scatter slot``, uploaded as one ``(2, pairs)``
     tensor — the counterpart of the JAX sweep's fused ``(R, P, 2)`` slot
-    table. ``pairs[i]`` are round i's views into it."""
+    table. ``pairs[i]`` are round i's views into it; ``perm[i]`` its
+    (src, dst) rank pairs as a host list (None in an owner-local phase),
+    which the recorder reads; ``name`` the phase's plan label (``level L
+    bcast``)."""
     table: torch.Tensor
     pairs: List[Tuple[torch.Tensor, torch.Tensor]]
+    name: str = ""
+    perm: List[Optional[List[Tuple[int, int]]]] = field(
+        default_factory=list)
+    src_len: int = 0
+    dst_len: int = 0
 
 
 @dataclass
@@ -336,6 +375,8 @@ def _dupes_are_trash(name: str, t: int, scatter: np.ndarray,
 
 def _uploader(dev):
     def up(x, dtype=torch.int64):
+        if dev.type == "meta":        # shapes only: nothing is copied
+            return torch.empty(np.shape(x), dtype=dtype, device=dev)
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                                device=dev)
     return up
@@ -355,6 +396,9 @@ def _count_bytes(tabs, objs) -> None:
                 tabs.nbytes += base.numel() * base.element_size()
         elif isinstance(v, (list, tuple)):
             for x in v:
+                add(x)
+        elif isinstance(v, CommSlot):
+            for x in vars(v).values():
                 add(x)
 
     for obj in objs:
@@ -445,6 +489,8 @@ def _lanes(t: int, name: str, g, s, tmask, glh, addm, perm, A: int,
         if len(set(dst.tolist())) != len(dst):
             raise ValueError(f"round {t}: a rank receives twice")
         lt.src, lt.dst = up(src), up(dst)
+        lt.perm = [(int(a), int(b)) for a, b in perm]
+        lt.where = f"round {t}"
     return lt
 
 
@@ -507,7 +553,7 @@ def _phase(name: str, rounds, local: bool, src_len: int, dst_len: int,
     real pairs move — a receiver's scatter slot is checked to lie below
     the trash block, and a rank that receives nothing must point at the
     trash — so the buffers need no trash block of their own."""
-    gs, ss, cuts = [], [], [0]
+    gs, ss, cuts, perms = [], [], [0], []
     for i, rnd in enumerate(rounds):
         slots = np.asarray(rnd.slots, np.int64)
         if slots.shape != (P, 2):
@@ -533,11 +579,14 @@ def _phase(name: str, rounds, local: bool, src_len: int, dst_len: int,
         gs.append(src * src_len + slots[src, 0])
         ss.append(dst * dst_len + slots[dst, 1])
         cuts.append(cuts[-1] + len(src))
+        perms.append(None if local else
+                     [(int(a), int(b)) for a, b in rnd.perm])
     table = up(np.stack([np.concatenate(gs), np.concatenate(ss)])
                if gs else np.zeros((2, 0), np.int64))
     return PhaseRounds(table=table, pairs=[
         (table[0, lo:hi], table[1, lo:hi])
-        for lo, hi in zip(cuts, cuts[1:])])
+        for lo, hi in zip(cuts, cuts[1:])], name=name, perm=perms,
+        src_len=src_len, dst_len=dst_len)
 
 
 def upload_exec_tables(prog: PSelInvProgram, device) -> ExecTables:
@@ -594,8 +643,11 @@ def upload_stream_tables(prog: PSelInvProgram,
     the level-stacked NK-padded compute tables, and each step's active
     comm slots with the pairs whose receiver keeps that slot's arrival
     (``recv_slot``). ``slot_active`` is known here, so an inactive slot
-    gets no entry and launches nothing. Every index is checked against
-    the extent it addresses; repeated scatter indices must be trash."""
+    gets no entry and launches nothing, and an active one ships only the
+    pairs that land (:class:`CommSlot`) — where the JAX program's gated
+    permute ships every pair of the slot's perm. Every index is checked
+    against the extent it addresses; repeated scatter indices must be
+    trash."""
     st = prog.stream_tables
     if st is None:
         raise ValueError(
@@ -633,28 +685,30 @@ def upload_stream_tables(prog: PSelInvProgram,
                         st.lglh, None, A, N, trash, up)
     comm = _lane_stack("permute", st.gather, st.scatter, st.tmask, st.glh,
                        st.addm, A, N, trash, up)
-    kept, owner = [], []
+    # one upload for every slot's (src, dst) index runs
+    parts, owner = [], []
     for t, ln in enumerate(comm):
         if ln is None:
             continue
         for si in np.nonzero(st.slot_active[t])[0]:
             w = int(st.slot_width[si])
-            pairs = [(s_, d) for (s_, d) in st.slot_perm[si]
+            pairs = [(int(s_), int(d)) for s_, d in st.slot_perm[si]
                      if st.recv_slot[t, d] == si]
             _in_bounds(f"round {t} slot {si} perm", np.ravel(pairs), P)
             if not 0 < w <= st.W:
                 raise ValueError(f"slot {si} width {w} outside (0, "
                                  f"{st.W}]")
             if pairs:
-                kept.append(np.array(pairs, np.int64).T)
-                owner.append((ln, w))
-    if kept:
-        pairs_t = up(np.concatenate(kept, axis=1))
+                parts.append(np.array(pairs, np.int64).T)
+                owner.append((ln, int(si), w, pairs))
+    if owner:
+        flat = up(np.concatenate(parts, axis=1))
         at = 0
-        for arr, (ln, w) in zip(kept, owner):
-            n = arr.shape[1]
-            ln.slots.append((pairs_t[0, at:at + n], pairs_t[1, at:at + n],
-                             w))
+        for ln, si, w, pairs in owner:
+            n = len(pairs)
+            ln.slots.append(CommSlot(
+                si=si, width=w, pairs=pairs, src=flat[0, at:at + n],
+                dst=flat[1, at:at + n]))
             at += n
     names = {i: k for k, i in COMP_KIND_ID.items()}
     _in_bounds("comp_kind", st.comp_kind, len(COMP_KIND_ID) + 1)
@@ -696,7 +750,7 @@ def moved_blocks(tables) -> Tuple[int, int]:
     for ln in tables.comm:
         if ln is None:
             continue
-        n = (sum(src.numel() * w for src, _, w in ln.slots) if stream
+        n = (sum(len(cs.pairs) * cs.width for cs in ln.slots) if stream
              else ln.src.numel() * ln.width)
         rounds += n > 0
         blocks += n
@@ -805,20 +859,36 @@ def _seed_diag(buf, Dinv, tabs) -> None:
 # the level-serial sweep: one level at a time, tree rounds in order
 # ---------------------------------------------------------------------------
 
+def _move(ph: PhaseRounds, i: int, dst, src=None, transpose: bool = False,
+          add: bool = False) -> None:
+    """Round ``i`` of a phase: a gather at the senders, the permute, and
+    a scatter (``add``: an accumulate) at the receivers, on ``(B, P·len,
+    b, b)`` views. A comm round reports itself to an active record: its
+    host pairs, and one rank's payload — its share of the gathered
+    blocks."""
+    g, s = ph.pairs[i]
+    blk = (dst if src is None else src).index_select(1, g)
+    if transpose:
+        blk = blk.transpose(-1, -2)
+    rec = exec_ir.active()
+    if rec is not None and ph.perm[i]:
+        B, n = blk.shape[:2]
+        rec.permute(f"{ph.name}[{i}]", "exec", ph.perm[i],
+                    (B, n // len(ph.perm[i])) + tuple(blk.shape[2:]),
+                    blk.dtype)
+    if add:
+        blk = blk + dst.index_select(1, s)
+    dst.index_copy_(1, s, blk)
+
+
 def _rounds(ph: PhaseRounds, dst, src=None, transpose: bool = False,
             add: bool = False) -> None:
-    """One phase's rounds, in order — each a gather at the senders, the
-    permute, and a scatter (``add``: an accumulate) at the receivers, on
-    ``(B, P·len, b, b)`` views. With ``src=None`` a round gathers from
-    ``dst`` as the earlier rounds left it: tree nodes forward what they
-    received, so the rounds of a phase are never fused."""
-    for g, s in ph.pairs:
-        blk = (dst if src is None else src).index_select(1, g)
-        if transpose:
-            blk = blk.transpose(-1, -2)
-        if add:
-            blk = blk + dst.index_select(1, s)
-        dst.index_copy_(1, s, blk)
+    """One phase's rounds, in order (:func:`_move`). With ``src=None`` a
+    round gathers from ``dst`` as the earlier rounds left it: tree nodes
+    forward what they received, so the rounds of a phase are never
+    fused."""
+    for i in range(len(ph.pairs)):
+        _move(ph, i, dst, src, transpose, add)
 
 
 def make_sweep(prog: PSelInvProgram, tables: ExecTables,
@@ -916,18 +986,25 @@ def _land(flat, moved, ln: LaneTables) -> None:
 
 def _permute_lanes(payload, ln: LaneTables):
     """The permute over the rank axis: ``moved[:, dst] = payload[:,
-    src]``; ranks that receive nothing get zeros, as in JAX."""
+    src]``; ranks that receive nothing get zeros, as in JAX. Reports
+    itself to an active record (one rank's payload: ``(B, width, b,
+    b)``)."""
+    rec = exec_ir.active()
+    if rec is not None:
+        rec.permute(ln.where, "overlap", ln.perm,
+                    payload.shape[:1] + payload.shape[2:], payload.dtype)
     moved = torch.zeros_like(payload)
     moved.index_copy_(1, ln.dst, payload.index_select(1, ln.src))
     return moved
 
 
 def _round(tabs: SweepTables, t: int, arena, flat, lh_flat, Dinv,
-           nbr, nbc, b, permute=_permute_lanes):
+           nbr, nbc, b, permute=None):
     """One executed round: the boundary's pinned compute ops, the
     owner-local lane moves, then round ``t``'s coalesced multi-lane
     permute with per-lane gather/scatter/accumulate/transpose tables —
-    over the rank axis, or (``permute``) between rank processes."""
+    over the rank axis (:func:`_permute_lanes`), or (``permute``) between
+    rank processes."""
     for kind, li in tabs.compute_at[t]:
         _compute(kind, tabs.levels[li], tabs.N, arena, flat, Dinv, nbr,
                  nbc, b)
@@ -937,7 +1014,7 @@ def _round(tabs: SweepTables, t: int, arena, flat, lh_flat, Dinv,
         B, P = arena.shape[:2]
         payload = _gather_lanes(flat, lh_flat, ln).view(
             B, P, ln.width, b, b)
-        moved = permute(payload, ln)
+        moved = (permute or _permute_lanes)(payload, ln)
         _land(flat, moved.view(B, P * ln.width, b, b), ln)
 
 
@@ -1098,8 +1175,7 @@ def rank_tables(tables: SweepTables, rank: int, device) -> SweepTables:
             mixed=bool(lh.any()), sc=shared(row(ln.sc, rank * A)),
             tm=shared(tm), any_t=bool(tm.any()),
             am=None if ln.am is None else shared(row(ln.am)),
-            perm=None if ln.src is None else list(zip(
-                ln.src.tolist(), ln.dst.tolist())))
+            perm=ln.perm, where=ln.where)
 
     levels = [LevelTables(
         nk=lv.nk, cm=mine(lv.cm), kcs=shared(lv.kcs), w=mine(lv.w),
@@ -1122,8 +1198,14 @@ def rank_tables(tables: SweepTables, rank: int, device) -> SweepTables:
 def _rank_permute(rank: int, group):
     """The permute of a rank process: its payload to its ``dst`` and its
     arrival from its ``src``, as one :func:`~..comm.p2p.ppermute`; a rank
-    that receives nothing lands zeros, as over the rank axis."""
+    that receives nothing lands zeros, as over the rank axis. Reports the
+    round to an active record as :func:`_permute_lanes` does."""
     def permute(payload, ln: LaneTables):
+        rec = exec_ir.active()
+        if rec is not None:
+            rec.permute(ln.where, "ranked", ln.perm,
+                        payload.shape[:1] + payload.shape[2:],
+                        payload.dtype)
         moved = ppermute(payload, ln.perm, group)
         if any(d == rank for _, d in ln.perm):
             return moved
@@ -1179,8 +1261,195 @@ def make_sweep_overlapped_ranked(prog: PSelInvProgram, tables: SweepTables,
 
 
 # ---------------------------------------------------------------------------
+# the level-serial sweep over rank processes
+# ---------------------------------------------------------------------------
+
+@dataclass
+class RankRound:
+    """One round of a level-serial phase as one rank runs it: the
+    round's (src, dst) pairs (``perm``; None in an owner-local phase) and
+    this rank's source slot when it sends (``gather``) and destination
+    slot when it receives (``scatter``) — both None when the round does
+    not touch it."""
+    perm: Optional[List[Tuple[int, int]]]
+    gather: Optional[int]
+    scatter: Optional[int]
+
+
+@dataclass
+class RankPhase:
+    """One rank's view of a :class:`PhaseRounds`."""
+    name: str
+    rounds: List[RankRound]
+
+
+def rank_exec_tables(tables: ExecTables, rank: int, device) -> ExecTables:
+    """Rank ``rank``'s view of the level-serial sweep's tables
+    (:func:`upload_exec_tables`' product, best uploaded to the host),
+    built as :func:`rank_tables` is: row ``rank`` of every ``(P, …)``
+    mask the compute phases read and of the structless-diagonal owners,
+    copied to ``device``; and for every round of every phase its host
+    ``perm`` and this rank's gather and scatter slot, read off the
+    uploaded ``src·len + slot`` addresses — so the ranked and the
+    single-process sweep cannot read different tables. ``P`` is 1."""
+    P, N = tables.P, tables.N
+    if not 0 <= rank < P:
+        raise ValueError(f"rank {rank} outside a grid of {P}")
+    dev = torch.device(device)
+
+    def mine(x):
+        return x[rank:rank + 1].to(dev, copy=True)
+
+    def shared(x):
+        return x.to(dev, copy=True)
+
+    def phase(ph: PhaseRounds) -> RankPhase:
+        rounds = []
+        for (g, s), perm in zip(ph.pairs, ph.perm):
+            src = {a // ph.src_len: a % ph.src_len for a in g.tolist()}
+            dst = {a // ph.dst_len: a % ph.dst_len for a in s.tolist()}
+            rounds.append(RankRound(perm=perm, gather=src.get(rank),
+                                    scatter=dst.get(rank)))
+        return RankPhase(name=ph.name, rounds=rounds)
+
+    levels = []
+    for lt in tables.levels:
+        lv = lt.masks
+        levels.append(ExecLevelTables(
+            masks=LevelTables(
+                nk=lv.nk, cm=mine(lv.cm), kcs=shared(lv.kcs), w=mine(lv.w),
+                krs=shared(lv.krs), rm=mine(lv.rm), dslot=shared(lv.dslot),
+                dslot_c=shared(lv.dslot_c), droot=mine(lv.droot)),
+            **{name: phase(getattr(lt, name)) for name in (
+                "xfer_in_local", "xfer_in", "bcast", "reduce",
+                "xfer_out_local", "xfer_out", "diag_reduce")}))
+    tabs = ExecTables(device=dev, P=1, N=N,
+                      dset_slot=shared(tables.dset_slot),
+                      dset_m=mine(tables.dset_m), levels=levels)
+    _count_bytes(tabs, [tabs, *[lt.masks for lt in levels]])
+    return tabs
+
+
+def _rank_rounds(ph: RankPhase, dst, src, transpose: bool, add: bool,
+                 rank: int, hole, group) -> None:
+    """One phase's rounds at one rank, in order, on ``(1, len, b, b)``
+    buffers: an owner-local round moves the rank's own block; a comm
+    round gathers the sender's block (transposed where the phase
+    transposes), runs one :func:`~..comm.p2p.ppermute` — on every rank,
+    so that every rank numbers the round alike — and lands the arrival
+    at the receiver (``add``: on top of what is there). ``hole`` is the
+    payload of a rank that only receives or sits the round out."""
+    rec = exec_ir.active()
+    for i, rnd in enumerate(ph.rounds):
+        if rnd.perm is not None and not rnd.perm:
+            continue
+        g, s = rnd.gather, rnd.scatter
+        blk = None
+        if g is not None:
+            blk = (dst if src is None else src)[:, g:g + 1]
+            if transpose:
+                blk = blk.transpose(-1, -2)
+        if rnd.perm is not None:
+            if rec is not None:
+                rec.permute(f"{ph.name}[{i}]", "ranked", rnd.perm,
+                            hole.shape[:1] + hole.shape[2:], hole.dtype)
+            blk = ppermute(hole if blk is None else blk, rnd.perm, group)
+        if s is None:
+            continue
+        if src is None and g == s:
+            blk = blk.clone()
+        if add:
+            blk = blk + dst[:, s:s + 1]
+        dst[:, s:s + 1].copy_(blk)
+
+
+def make_sweep_ranked(prog: PSelInvProgram, tables: ExecTables, rank: int,
+                      group=None):
+    """The level-serial sweep — the paper's algorithm — as rank
+    ``rank`` of a ``pr·pc``-process group runs it, over its own view of
+    the tables (:func:`rank_exec_tables`). Each level follows
+    :func:`make_sweep`: xfer-in and the column broadcast build the
+    rank's Û stack, the level GEMM runs in the hand-written kernel at Z=1
+    (``ops.pselinv_round_gemm``), the row reduction, the column write,
+    xfer-out and the diagonal sum, reduction and write — every
+    non-local round a point-to-point message (:func:`_rank_rounds`); tree
+    nodes forward what they received, so the rounds of a phase are never
+    fused. The returned ``sweep(Lh, Dinv)`` takes the rank's value shards
+    ``(nbr, nbc, b, b)`` on the tables' device and returns its A⁻¹ shard
+    in the same layout."""
+    import torch.distributed as dist
+
+    ex = prog.exec_plan
+    if ex is None:
+        raise ValueError("build_program(..., overlap=False) first")
+    if tables.P != 1:
+        raise ValueError("the ranked sweep reads one rank's tables — "
+                         "rank_exec_tables(upload_exec_tables(...), rank, "
+                         "device)")
+    if dist.get_rank(group) != rank or (
+            dist.get_world_size(group) != prog.pr * prog.pc):
+        raise ValueError(
+            f"rank {rank} of a {prog.pr}x{prog.pc} grid, but this process "
+            f"is rank {dist.get_rank(group)} of "
+            f"{dist.get_world_size(group)}")
+    b, N = prog.b, tables.N
+    nbr, nbc = ex.nbr, ex.nbc
+
+    def sweep(Lh: torch.Tensor, Dinv: torch.Tensor) -> torch.Tensor:
+        Lh, Dinv = _values(Lh[None], Dinv[None], (1, nbr, nbc, b, b),
+                           tables.device, False)
+        lh_flat = Lh.reshape(1, N, b, b)
+        Dinv_f = Dinv.reshape(1, 1, N, b, b)
+        ainv = Lh.new_zeros((1, 1, N, b, b))
+        aflat = ainv.view(1, N, b, b)
+        Ainv = ainv.view(1, 1, nbr, nbc, b, b)
+        hole = Lh.new_zeros((1, 1, b, b))
+        _seed_diag(ainv, Dinv_f, tables)
+
+        def run(ph, dst, src=None, transpose=False, add=False):
+            _rank_rounds(ph, dst, src, transpose, add, rank, hole, group)
+
+        for lt in tables.levels:
+            lv, nk = lt.masks, lt.masks.nk
+            uh = Lh.new_zeros((1, 1, nk * nbc, b, b))
+            uflat = uh.view(1, nk * nbc, b, b)
+            run(lt.xfer_in_local, uflat, lh_flat, transpose=True)
+            run(lt.xfer_in, uflat, lh_flat, transpose=True)
+            run(lt.bcast, uflat)
+            U = uh.view(1, 1, nk, nbc, b, b)
+            part = Lh.new_empty((1, 1, nk * nbr, b, b))
+            partial = part.view(1, 1, nk, nbr, b, b)
+            pselinv_round_gemm(Ainv, U, lv.cm, out=partial)
+            run(lt.reduce, part.view(1, nk * nbr, b, b), add=True)
+            _write_cols(Ainv, partial, lv)
+            run(lt.xfer_out_local, aflat, transpose=True)
+            run(lt.xfer_out, aflat, transpose=True)
+            S = _diag_sum(Ainv, U, lv)
+            run(lt.diag_reduce, S.view(1, nk, b, b), add=True)
+            _write_diag(ainv, Dinv_f, S, lv)
+        return ainv.view(nbr, nbc, b, b)
+
+    return sweep
+
+
+# ---------------------------------------------------------------------------
 # the stream sweep: the overlapped rounds as uniform, round-stacked tables
 # ---------------------------------------------------------------------------
+
+def _ship_slot(payload, moved, cs: CommSlot, t: int) -> None:
+    """One active comm slot at step ``t``: the leading ``width`` lanes
+    of each sender whose receiver keeps this slot's arrival ship into
+    ``moved`` (``(B, P, W, b, b)``). Reports its host pairs to an active
+    record."""
+    w = cs.width
+    rec = exec_ir.active()
+    if rec is not None:
+        rec.permute(f"comm slot {cs.si}", "stream", cs.pairs,
+                    (payload.shape[0], w) + tuple(payload.shape[3:]),
+                    payload.dtype, step=t)
+    moved[:, :, :w].index_copy_(
+        1, cs.dst, payload[:, :, :w].index_select(1, cs.src))
+
 
 def make_sweep_stream(prog: PSelInvProgram, tables: StreamSweepTables,
                       batched: bool = False, padded: bool = False):
@@ -1192,8 +1461,8 @@ def make_sweep_stream(prog: PSelInvProgram, tables: StreamSweepTables,
     dependence order, through the phases the overlapped sweep uses; (b)
     the owner-local lanes; (c) gathers the rank's one outgoing lane stack
     once, then each active comm slot ships the stack's leading
-    ``slot_width`` lanes along its static perm, each receiver keeping only
-    its ``recv_slot`` arrival, and the arrivals land through the
+    ``slot_width`` lanes to the receivers that keep its arrival
+    (``recv_slot``; :func:`_ship_slot`), and the arrivals land through the
     transpose mask and the ``moved + am·cur`` scatter.
 
     ``padded=False`` runs each compute slot at its level's own nk (the
@@ -1230,9 +1499,8 @@ def make_sweep_stream(prog: PSelInvProgram, tables: StreamSweepTables,
             payload = _gather_lanes(flat, lh_flat, ln).view(
                 B, P, ln.width, b, b)
             moved = torch.zeros_like(payload)
-            for src, dst, w in ln.slots:
-                moved[:, :, :w].index_copy_(
-                    1, dst, payload[:, :, :w].index_select(1, src))
+            for cs in ln.slots:
+                _ship_slot(payload, moved, cs, t)
             _land(flat, moved.view(B, P * ln.width, b, b), ln)
         out = arena[:, :, :N].reshape(B, *shape).clone(
             memory_format=torch.contiguous_format)
@@ -1521,28 +1789,25 @@ def run_distributed(A, b: int, pr: int, pc: int,
     process of ``group`` (the default group when None) calls it with the
     same arguments. Every rank analyzes ``A`` (deterministic); rank 0
     prepares the values once and sends each rank its shards; each rank
-    runs the overlapped sweep on ``device`` over its own tables
-    (:func:`make_sweep_overlapped_ranked`), its level GEMMs in the
-    hand-written kernel, its rounds as point-to-point messages; an
+    runs the overlapped sweep (:func:`make_sweep_overlapped_ranked`) or,
+    with ``overlap=False``, the level-serial one
+    (:func:`make_sweep_ranked`) on ``device`` over its own tables, its
+    level GEMMs in the hand-written kernel, its rounds as point-to-point
+    messages; an
     ``all_gather`` after the sweep hands every rank the full ``(P, nbr,
     nbc, b, b)`` numpy array, so ``gather_blocks(out, prog)`` works as in
     the JAX package. Returns ``(out, prog)``.
 
     Unlike the JAX package's shim over its engine this entry point is
     not deprecated: the port's engine runs every rank in one process,
-    and this is its multi-process path. ``overlap=False`` (the
-    level-serial executor) and ``pipelined=False`` (the legacy unrolled
-    one) over ranks are not ported. ``device="cuda"`` raises on a rank
-    that has no card; on a one-card machine every rank shares
+    and this is its multi-process path. ``pipelined=False`` (the legacy
+    unrolled executor) over ranks is not ported. ``device="cuda"`` raises
+    on a rank that has no card; on a one-card machine every rank shares
     ``cuda:0``."""
     if not pipelined:
         raise NotImplementedError(
             "run_distributed(pipelined=False): the legacy unrolled "
             "executor over rank processes is not ported (ROADMAP Queue 1)")
-    if not overlap:
-        raise NotImplementedError(
-            "run_distributed(overlap=False): the level-serial executor "
-            "over rank processes is not ported (ROADMAP Queue 1)")
     import torch.distributed as dist
 
     from .device import resolve_device
@@ -1551,11 +1816,17 @@ def run_distributed(A, b: int, pr: int, pc: int,
     dev = resolve_device(device)
     rank = dist.get_rank(group)
     bs, nb = analyze_structure(A, b, pr, pc)
-    prog = build_program(bs, nb, b, pr, pc, kind=kind, overlap=True)
+    prog = build_program(bs, nb, b, pr, pc, kind=kind, overlap=overlap)
     shard = _scatter_values(A, prog, group)
-    tabs = rank_tables(upload_tables(prog, "cpu"), rank, dev)
-    out = make_sweep_overlapped_ranked(prog, tabs, rank, group)(
-        shard[0].to(dev, dtype), shard[1].to(dev, dtype))
+    if overlap:
+        sweep = make_sweep_overlapped_ranked(
+            prog, rank_tables(upload_tables(prog, "cpu"), rank, dev), rank,
+            group)
+    else:
+        sweep = make_sweep_ranked(
+            prog, rank_exec_tables(upload_exec_tables(prog, "cpu"), rank,
+                                   dev), rank, group)
+    out = sweep(shard[0].to(dev, dtype), shard[1].to(dev, dtype))
     host = out.cpu()        # the result goes back as numpy
     parts = [torch.empty_like(host) for _ in range(pr * pc)]
     dist.all_gather(parts, host, group=group)

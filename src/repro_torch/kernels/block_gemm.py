@@ -191,7 +191,7 @@ def _check(*ts: torch.Tensor) -> str:
             raise TypeError(f"dtype mismatch: {dt} vs {t.dtype}")
         if t.device != dev:
             raise ValueError(f"device mismatch: {dev} vs {t.device}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"block_gemm runs on cpu or cuda, got {dev}")
     return dev.type
 
@@ -239,6 +239,8 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor,
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     if dev == "cpu":
         return block_gemm_plain(a, b, alpha)
+    if dev == "meta":                 # shapes only (the verifier's sweep)
+        return a.new_empty(a.shape[:-1] + b.shape[-1:])
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("block_gemm takes contiguous operands")
     m, k = a.shape[-2:]
@@ -296,6 +298,8 @@ def blocked_gemm(ainv: torch.Tensor, uh: torch.Tensor,
         if out is None:
             return res
         return out.copy_(res)
+    if dev == "meta":                 # shapes only (the verifier's sweep)
+        return ainv.new_empty(oshape) if out is None else out
     if out is None:
         out = torch.empty(oshape, dtype=ainv.dtype, device=ainv.device)
     for name, t in (("ainv", ainv), ("uh", uh), ("out", out)):

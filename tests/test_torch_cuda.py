@@ -6,8 +6,10 @@ profiling replay against the solve, the serial path's ``cuda``
 backend against the numpy backend, the CUDA-graph runners and the
 server on them against the eager sweep, and rank processes sharing the
 card: a gloo ``ppermute`` of a CUDA tensor (staged through pinned host
-memory) and a ranked ``run_distributed`` against the single-process
-solve.
+memory) and a ranked ``run_distributed``, overlapped and level-serial,
+against the single-process solve, with the level-serial send logs held
+to the plan (``lint_ranked``); and ``lint_compiled`` of every executor
+with its captured graph.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one; the file imports neither JAX nor the JAX package, so it runs on a
@@ -678,3 +680,94 @@ def test_ranked_solve_on_the_card_equals_single_process(cuda_device):
     assert [r["launches"] for r in rows] == [eng.gemm_ops()] * 8
     assert sum(r["sent"] for r in rows) == eng.moved()[1]
     assert sum(r["staged"] for r in rows) == 2 * eng.moved()[1]
+
+
+@pytest.mark.parametrize("options", [dict(), dict(overlap=False),
+                                     dict(stream=True)])
+def test_lint_compiled_on_the_card(cuda_device, options):
+    """``lint_compiled`` on the card: the eager sweep's ops and permutes
+    and the permutes recorded while the class's graph was captured are
+    the plan's (the stream's: its landing slots), clean, as are the
+    device tables; the graph holds one block-GEMM node a GEMM op."""
+    from repro_torch.core.exec_verify import (expected_permutes,
+                                              stream_landings)
+    A = sparse.laplacian_2d(16, 8)
+    PSelInvEngine.clear_cache()
+    eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2),
+                                options=PlanOptions(**options))
+    eng.solve(A, dtype=torch.float64)
+    res = eng.lint_compiled(dtype=torch.float64, verify_compiled="error")
+    st = eng.program.stream_tables
+    want = (len(stream_landings(st)) if st is not None else
+            sum(e.activations for e in expected_permutes(eng.program)))
+    assert list(res) == []
+    assert res.info["layers"]["eager"] == res.info["layers"]["graph"] == want
+    assert res.info["wire_blocks"] == res.info["expected_blocks"]
+    assert res.info["graph_gemm_nodes"] == eng.gemm_ops()
+    PSelInvEngine.clear_cache()
+
+
+def _ranked_lap_ls_rank(rank):
+    """``run_distributed(overlap=False)``, then the rank's sweep again
+    under the recorder and the op layer, linted with its staged bytes."""
+    from repro_torch.comm import p2p
+    from repro_torch.core import exec_ir
+    from repro_torch.core.exec_verify import lint_ops
+    from repro_torch.core.pselinv_dist import (
+        analyze_structure, build_program, make_sweep_ranked,
+        prepare_values, rank_exec_tables, run_distributed,
+        upload_exec_tables)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    A = sparse.laplacian_2d(16, 8)
+    p2p.LOG.clear()
+    bg.launches = 0
+    out, prog = run_distributed(A, b=8, pr=4, pc=2, dtype=torch.float64,
+                                device="cuda", overlap=False)
+    res = dict(out=out if rank == 0 else None, launches=bg.launches,
+               log=p2p.LOG.snapshot())
+    bs, nb = analyze_structure(A, 8, 4, 2)
+    Lh, Dinv = (torch.from_numpy(x[rank]).cuda()
+                for x in prepare_values(A, bs, nb, 8, 4, 2))
+    sweep = make_sweep_ranked(prog, rank_exec_tables(
+        upload_exec_tables(prog, "cpu"), rank, Lh.device), rank)
+    p2p.LOG.clear()
+    with exec_ir.record() as rec, exec_ir.ops_layer(rec):
+        again = sweep(Lh, Dinv)
+    torch.cuda.synchronize()
+    res.update(again=again.cpu().numpy(), staged=p2p.LOG.staged_bytes,
+               staged_notes=sum(n.kind == "staged" for n in rec.notes),
+               codes=[str(d) for d in lint_ops(
+                   rec, prog, layer="ranked",
+                   staged_bytes=p2p.LOG.staged_bytes)])
+    return res
+
+
+def test_ranked_level_serial_on_the_card(cuda_device):
+    """The level-serial sweep by 8 processes on the one card equals the
+    single-process level-serial card solve; every rank launches one GEMM a
+    level; the ranks' send logs are the plan's, round by round, with every
+    message staged down and up; and a rank's sweep under the op layer is
+    clean, its staging copies exempt and adding up to its staged bytes."""
+    from repro_torch.comm import p2p
+    from repro_torch.core.exec_verify import lint_ranked
+    from repro_torch.kernels import _build
+    _build.build(["block_gemm"])
+    A = sparse.laplacian_2d(16, 8)
+    PSelInvEngine.clear_cache()
+    eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2),
+                                options=PlanOptions(overlap=False))
+    single = eng.sweep()(*(v.to(cuda_device, torch.float64)
+                           for v in eng.prepare_values(A))).cpu().numpy()
+    rows = p2p.spawn(_ranked_lap_ls_rank, 8, timeout=600)
+    np.testing.assert_array_equal(rows[0]["out"], single)
+    assert [r["launches"] for r in rows] == [eng.gemm_ops()] * 8
+    res = lint_ranked([r["log"] for r in rows], eng.program)
+    assert list(res) == []
+    assert res.info["sent_bytes"] == eng.moved()[1]
+    assert res.info["staged_bytes"] == 2 * eng.moved()[1]
+    np.testing.assert_array_equal(
+        np.stack([r["again"] for r in rows]), single)
+    assert all(r["codes"] == [] for r in rows)
+    assert sum(r["staged"] for r in rows) == 2 * eng.moved()[1]
+    assert all(r["staged_notes"] > 0 for r in rows if r["staged"])

@@ -1,4 +1,4 @@
-"""The port's multi-rank sweep (``run_distributed`` over 8 gloo rank
+"""The port's multi-rank sweeps (``run_distributed`` over 8 gloo rank
 processes, ``device="cpu"``) against the JAX package's ``run_distributed``
 on 8 host devices, the dense oracle and the port's single-process
 engine, in f64.
@@ -6,14 +6,18 @@ engine, in f64.
 One JAX subprocess (8 host devices, x64) runs ``run_distributed`` on a
 Laplacian and on a bushy FEM-like structure (several supernodes per
 elimination-tree level), b=8 on grid 4×2, with the flat and the shifted
-trees, and writes an ``.npz``. One group of 8 gloo processes runs the
-port's ``run_distributed`` on the same four cases; every rank returns
-the full result and its send log. The result must be within 1e-12 of
-JAX's and of ``dense_selinv_oracle`` on the selected blocks, and bitwise
-equal to the port's single-process ``engine.solve`` (the level GEMM and
-the diagonal einsum run at P=1 per process, at P=8 in one; on the CPU
-both sum each element in one order). The ranks' sent bytes must total
-``executed_wire_bytes`` and ``engine.stats()["moved_bytes"]``."""
+trees, overlapped and level-serial (``overlap=False``), and writes an
+``.npz``. One group of 8 gloo processes runs the port's
+``run_distributed`` on the same eight cases; every rank returns the full
+result and its send log. The result must be within 1e-12 of JAX's (and,
+overlapped, of ``dense_selinv_oracle`` on the selected blocks), and
+bitwise equal to the port's single-process ``engine.solve`` of the same
+executor (the level GEMM and the diagonal einsum run at P=1 per process,
+at P=8 in one; on the CPU both sum each element in one order). The
+ranks' sent bytes must total ``executed_wire_bytes`` and
+``engine.stats()["moved_bytes"]`` (overlapped), and
+``expected_wire_blocks·b²·8`` (level-serial), and their send logs must
+hold the plan round by round (``exec_verify.lint_ranked``)."""
 import threading
 import warnings
 
@@ -24,13 +28,16 @@ import torch
 from conftest import run_sub
 
 from repro_torch.comm import p2p
-from repro_torch.core import sparse
+from repro_torch.core import exec_ir, sparse
+from repro_torch.core.exec_verify import (expected_wire_blocks, lint_ops,
+                                          lint_ranked)
 from repro_torch.core.engine import Grid, PSelInvEngine
 from repro_torch.core.plan import PlanOptions
 from repro_torch.core.pselinv_dist import (build_program, check_grid_devices,
-                                           gather_blocks, prepare_inputs,
+                                           gather_blocks, make_sweep_ranked,
+                                           prepare_inputs, rank_exec_tables,
                                            rank_tables, run_distributed,
-                                           upload_tables)
+                                           upload_exec_tables, upload_tables)
 from repro_torch.core.selinv import dense_selinv_oracle
 from repro_torch.core.simulator import executed_wire_bytes
 from repro_torch.core.trees import TreeKind
@@ -66,30 +73,38 @@ def jax_ref(tmp_path_factory):
         out = {{}}
         for m, A in mats.items():
             for k, kind in kinds.items():
-                o, _ = run_distributed(A, b=8, pr=4, pc=2, kind=kind,
-                                       dtype=jnp.float64)
-                out[m + "_" + k] = np.asarray(o)
+                for ex, overlap in (("", True), ("_ls", False)):
+                    o, _ = run_distributed(A, b=8, pr=4, pc=2, kind=kind,
+                                           dtype=jnp.float64,
+                                           overlap=overlap)
+                    out[m + "_" + k + ex] = np.asarray(o)
         np.savez({str(path)!r}, **out)
     """, ndev=8, x64=True)
     return dict(np.load(path))
 
 
 def _port_rank(rank):
-    """The four cases on this rank: its full result, its send log and
-    the rounds it took part in."""
+    """The four cases on this rank, overlapped and level-serial (key
+    suffix ``_ls``): its full result, its send log, the rounds it took
+    part in, and the error codes of its own recorded permutes against
+    the plan."""
     torch.set_num_threads(1)
     mats, res = _matrices(), {}
     for m, k in CASES:
-        p2p.LOG.clear()
-        out, prog = run_distributed(mats[m], b=8, pr=4, pc=2,
-                                    kind=KINDS[k], dtype=torch.float64,
-                                    device="cpu")
-        moves = [(r, s == rank) for r, s, _, _ in p2p.LOG.entries]
-        res[m + "_" + k] = dict(out=out, sent=p2p.LOG.sent(),
-                                received=p2p.LOG.received(),
-                                rounds=p2p.LOG.rounds,
-                                staged=p2p.LOG.staged_bytes,
-                                once=len(moves) == len(set(moves)))
+        for ex, overlap in (("", True), ("_ls", False)):
+            p2p.LOG.clear()
+            with exec_ir.record() as rec:
+                out, prog = run_distributed(mats[m], b=8, pr=4, pc=2,
+                                            kind=KINDS[k],
+                                            dtype=torch.float64,
+                                            device="cpu", overlap=overlap)
+            moves = [(r, s == rank) for r, s, _, _ in p2p.LOG.entries]
+            res[m + "_" + k + ex] = dict(
+                out=out, sent=p2p.LOG.sent(), received=p2p.LOG.received(),
+                rounds=p2p.LOG.rounds, staged=p2p.LOG.staged_bytes,
+                once=len(moves) == len(set(moves)),
+                log=p2p.LOG.snapshot(),
+                codes=sorted({d.code for d in lint_ops(rec, prog)}))
     return res
 
 
@@ -98,9 +113,10 @@ def port():
     return p2p.spawn(_port_rank, 8, timeout=400)
 
 
-def _engine(m, k):
+def _engine(m, k, overlap=True):
     eng = PSelInvEngine.analyze(_matrices()[m], b=8, grid=Grid(4, 2),
-                                options=PlanOptions(kind=KINDS[k]),
+                                options=PlanOptions(kind=KINDS[k],
+                                                    overlap=overlap),
                                 device="cpu")
     return eng, eng.solve(_matrices()[m], dtype=torch.float64).numpy()
 
@@ -147,6 +163,74 @@ def test_send_log_totals_the_executed_wire(port, m, k):
     assert all(row["once"] and row["staged"] == 0 for row in rows)
 
 
+@pytest.mark.parametrize("m,k", CASES)
+def test_ranked_level_serial_matches_single_process_and_jax(jax_ref, port,
+                                                            m, k):
+    """The paper's level-serial sweep by 8 rank processes: every rank
+    holds the same result, bitwise the single-process level-serial
+    engine's and within 1e-12 of the JAX package's
+    ``run_distributed(overlap=False)``."""
+    key = m + "_" + k + "_ls"
+    out = port[0][key]["out"]
+    for r in range(1, 8):
+        np.testing.assert_array_equal(port[r][key]["out"], out)
+    _, single = _engine(m, k, overlap=False)
+    np.testing.assert_array_equal(out, single)
+    assert np.abs(out - jax_ref[key]).max() <= TOL
+
+
+@pytest.mark.parametrize("m,k", CASES)
+def test_ranked_level_serial_send_log_is_the_plan(port, m, k):
+    """The ranks' messages are the plan's wire exactly
+    (``expected_wire_blocks·b²·8``, the session's moved bytes), their
+    logs hold the plan round by round (``lint_ranked``), and each rank's
+    own recorded permutes lint clean."""
+    key = m + "_" + k + "_ls"
+    eng, _ = _engine(m, k, overlap=False)
+    rows = [port[r][key] for r in range(8)]
+    sent = sum(row["sent"][1] for row in rows)
+    assert sent == sum(row["received"][1] for row in rows)
+    assert sent == expected_wire_blocks(eng.program) * 8 * 8 * 8
+    assert sent == eng.stats()["moved_bytes"]
+    res = lint_ranked([row["log"] for row in rows], eng.program)
+    assert list(res) == []
+    assert res.info["sent_bytes"] == sent and res.info["staged_bytes"] == 0
+    assert all(row["codes"] == [] and row["once"] and row["staged"] == 0
+               for row in rows)
+
+
+def test_lint_ranked_catches_faults_injected_into_a_log(port):
+    """A retargeted pair, a dropped round, a resized message and staged
+    bytes that do not add up, each injected into the ranks' logs of the
+    FEM level-serial solve, fire their codes."""
+    eng, _ = _engine("fem", "shifted", overlap=False)
+    logs = [port[r]["fem_shifted_ls"]["log"] for r in range(8)]
+
+    def codes(mutated):
+        return {d.code for d in lint_ranked(mutated, eng.program)}
+
+    def edit(fn):
+        return [dict(lg, entries=[e2 for e in lg["entries"]
+                                  for e2 in fn(lg["rank"], e)])
+                for lg in logs]
+
+    r0, s0, d0, n0 = logs[0]["entries"][0]
+    free = next(r for r in range(8) if r not in (s0, d0) and not any(
+        e[0] == r0 and e[2] == r for lg in logs for e in lg["entries"]))
+
+    def retarget(rank, e):
+        return [(e[0], e[1], free, e[3])] if e[:3] == (r0, s0, d0) else [e]
+
+    assert {"hlo/perm-unknown", "hlo/perm-missing"} <= codes(
+        edit(retarget))
+    assert codes(edit(lambda rank, e: [] if e[0] == r0 else [e])) >= {
+        "hlo/perm-missing"}
+    assert "hlo/bytes-drift" in codes(edit(
+        lambda rank, e: [e[:3] + (e[3] * 2,)] if e[0] == r0 else [e]))
+    assert codes([dict(lg, staged_bytes=lg["staged_bytes"] + 8)
+                  for lg in logs]) == {"hlo/host-transfer"}
+
+
 def test_rank_tables_are_rows_of_the_uploaded_tables():
     """A rank's view plus its arena and shard offsets gives back row
     ``rank`` of every lane table, and each permute's pairs."""
@@ -173,6 +257,42 @@ def test_rank_tables_are_rows_of_the_uploaded_tables():
         rank_tables(tabs, P, "cpu")
 
 
+def test_rank_exec_tables_are_rows_of_the_uploaded_tables():
+    """A rank's level-serial view: row ``rank`` of every mask, and for
+    each round its host pairs and the rank's gather and scatter slot,
+    read off the uploaded ``src·len + slot`` addresses."""
+    A = _matrices()["fem"]
+    eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2), device="cpu",
+                                options=PlanOptions(overlap=False))
+    tabs = upload_exec_tables(eng.program, "cpu")
+    for rank in (0, 5):
+        mine = rank_exec_tables(tabs, rank, "cpu")
+        assert mine.P == 1 and mine.dset_m.shape[0] == 1
+        for g, lt in zip(tabs.levels, mine.levels):
+            assert torch.equal(lt.masks.cm[0], g.masks.cm[rank])
+            assert torch.equal(lt.masks.droot[0], g.masks.droot[rank])
+            for name in ("xfer_in", "bcast", "reduce", "xfer_out_local"):
+                ph, rp = getattr(g, name), getattr(lt, name)
+                assert rp.name == ph.name
+                for (gs, ss), perm, rnd in zip(ph.pairs, ph.perm,
+                                               rp.rounds):
+                    assert rnd.perm == perm
+                    src = (gs // ph.src_len).tolist()
+                    dst = (ss // ph.dst_len).tolist()
+                    assert (rnd.gather is None) == (rank not in src)
+                    assert (rnd.scatter is None) == (rank not in dst)
+                    if rnd.gather is not None:
+                        assert int(gs[src.index(rank)]) == \
+                            rank * ph.src_len + rnd.gather
+                    if rnd.scatter is not None:
+                        assert int(ss[dst.index(rank)]) == \
+                            rank * ph.dst_len + rnd.scatter
+    with pytest.raises(ValueError, match="outside a grid"):
+        rank_exec_tables(tabs, 8, "cpu")
+    with pytest.raises(ValueError, match="rank_exec_tables"):
+        make_sweep_ranked(eng.program, tabs, 0)
+
+
 def test_grid_and_input_errors():
     """The reference's diagnostics: a grid that is not one rank per
     process, a size that is not a multiple of b, and the deprecated
@@ -191,7 +311,10 @@ def test_grid_and_input_errors():
     assert Lh.shape == Dinv.shape == (8, nb // 4, nb // 2, 8, 8)
 
 
-@pytest.mark.parametrize("kw", [dict(overlap=False), dict(pipelined=False)])
+# the level-serial case (once id "kw0") runs now: the ranked level-serial
+# tests above replace it; the unrolled case keeps its id
+@pytest.mark.parametrize("kw", [pytest.param(dict(pipelined=False),
+                                             id="kw1")])
 def test_other_executors_over_ranks_are_not_ported(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_distributed(sparse.laplacian_2d(12, 8), b=8, pr=4, pc=2,

@@ -149,15 +149,19 @@ def test_default_device_raises_without_a_card():
 
 
 def test_unported_executors_raise():
-    """The compiled-program lint (HloLint) is still unported and raises;
-    the level-serial and stream executors are ported and analyze (their
-    solves are held in ``test_torch_executors.py``)."""
+    """Nothing the engine offers raises as unported any more: the
+    level-serial and stream executors analyze (their solves are held in
+    ``test_torch_executors.py``), and ``verify_compiled="error"`` — the
+    executed-communication verifier, once refused — lints every executor
+    clean at analyze (``test_torch_exec_verify.py`` holds its checks)."""
     A = _cases()["lap"]
     from repro_torch.core.plan import PlanOptions
     for opts in (PlanOptions(overlap=False), PlanOptions(stream=True)):
         eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2), options=opts,
                                     device="cpu")
         assert eng.gemm_ops() == 7
-    with pytest.raises(NotImplementedError):
-        PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2), device="cpu",
-                              verify_compiled="error")
+    for opts in (PlanOptions(), PlanOptions(overlap=False),
+                 PlanOptions(stream=True)):
+        eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2), options=opts,
+                                    device="cpu", verify_compiled="error")
+        assert eng.options.verify_compiled == "error"

@@ -19,7 +19,8 @@ OPTIONS = {"overlapped": PlanOptions(),
            "stream": PlanOptions(stream=True)}
 COMPILE_KEYS = {"warmup_ms", "capture_ms", "graph_kernels",
                 "graph_gemm_nodes", "comm_rounds", "moved_bytes",
-                "jaxpr_lines", "hlo_bytes", "collective_bytes"}
+                "jaxpr_lines", "hlo_bytes", "ppermute_count",
+                "collective_bytes"}
 
 
 def _cases():
@@ -109,17 +110,24 @@ def test_stats_compile_reports_the_capture_surface(executor):
     """``stats(compile=True)`` merges ``compile_stats()`` of the f32
     single-matrix class: on the CPU nothing is captured, so the capture
     figures are None, as are the JAX engine's program-text sizes; the
-    moves are counted. A class's metrics are measured once (cached), and
-    measuring them builds no counted runner."""
+    moves are counted, and the permute census (``ppermute_count``,
+    ``collective_bytes``) is the executed one: the plan's permutes (each
+    stream slot once an active step) and one rank's f32 payloads. A
+    class's metrics are measured once (cached), and measuring them builds
+    no counted runner."""
+    from repro_torch.core.exec_verify import expected_permutes
     A = _cases()["fem"]
     PSelInvEngine.clear_cache()
     eng = _engine(A, executor)
     st = eng.stats(compile=True)
     assert COMPILE_KEYS <= set(st)
     for k in ("warmup_ms", "capture_ms", "graph_kernels",
-              "graph_gemm_nodes", "jaxpr_lines", "hlo_bytes",
-              "collective_bytes"):
+              "graph_gemm_nodes", "jaxpr_lines", "hlo_bytes"):
         assert st[k] is None, k
+    exp = expected_permutes(eng.program)
+    assert st["ppermute_count"] == sum(e.activations for e in exp)
+    assert st["collective_bytes"] == sum(
+        e.activations * e.width for e in exp) * eng.b * eng.b * 4
     assert st["comm_rounds"] == st["ppermute_rounds"] > 0
     assert st["moved_bytes"] == eng.moved()[1] > 0
     assert st["graph_replays"] == 0 and st["graph_bytes"] == 0
