@@ -53,6 +53,15 @@ on the card:
    block-GEMM nodes = ``gemm_ops()`` — with the lint's wall and op
    counts; then a Laplacian session whose permute helper retargets one
    pair must fail its lint on the card;
+3f. runs the legacy unrolled sweep (``build_program_unrolled`` →
+   ``make_sweep_unrolled``: per supernode, the broadcast of the whole Û
+   buffer and the reduction of the whole partial round by round, one
+   block-GEMM launch) on each setting's prepared f64 values: one eager
+   and one timed solve, its rounds against the host program (1805 /
+   3321), one launch per supernode with a struct (127 / 127) on the DMMA
+   variant, the selected blocks against the dense inverse, the solve
+   within 1e-12·max|A⁻¹| of the overlapped one, a traced solve's busy
+   share;
 4. runs the serial path — ``factorize`` + ``selinv`` with the ``cuda`` and
    ``torch`` backends in f64 — on the FEM matrix, against the dense
    inverse and the engine's solve, with one trsm launch per supernode
@@ -87,9 +96,24 @@ on the card:
    barrier to barrier, each rank's shard against the single-process level-serial
    solve (sha1, else max|Δ| within 1e-12·max|A⁻¹|), the sent bytes
    against the plan's wire and every rank's send log held to the plan
-   round by round (``exec_verify.lint_ranked``); then
+   round by round (``exec_verify.lint_ranked``); then the legacy
+   unrolled sweep by the same ranks (``make_sweep_unrolled_ranked``,
+   each round one message of the JAX round's payload) on
+   ``laplacian_2d(32, 8)`` at b=8 (222 rounds) and on the FEM values
+   (1805 rounds), a warm-up and one solve each: each shard against a
+   single-process unrolled solve (sha1, else max|Δ| within
+   1e-12·max|A⁻¹|), the sent bytes against the bytes reckoned from the
+   rounds, the wall, the time on the wire and waiting for the card; then
    ``subset_broadcast``, ``subset_reduce`` and ``tree_allreduce`` on
    64 MiB of integer-valued f32 a rank, exact, with wall and GB/s;
+9b. runs ``python -m repro_torch.benchmarks.run --only
+   kernels,selinv,treecomm --json build/bench_torch.json`` on the card:
+   it must exit 0 with every row ``tools.record_bench`` requires; prints
+   the three speed ratios the JAX bench asserts on a CPU host and whether
+   each met its bar here; loads the size baseline from the committed
+   ``BENCH_pselinv_torch.json`` (``exec_verify.load_size_baseline``, its
+   newest card entry) and lints the nb=16 4×2 f32 stream class on the
+   card against it: no diagnostic;
 9. writes every measured row to ``build/chip_smoke.json`` and prints the
    kernels' JSON line, the total wall time, the card line and, last, the
    result.
@@ -1338,6 +1362,96 @@ def mutated_lint(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: the legacy unrolled sweep on phase 3's settings
+# ---------------------------------------------------------------------------
+
+#: the unrolled schedule's rounds on each setting at b = 96 / 128, grid 4×2
+UNROLLED_ROUNDS = {"fem3d_like(16,16,16,3)": 1805, "dg_like(32,32,16)": 3321}
+
+
+def unrolled_path(dev, setting, state, b, grid=(4, 2)):
+    """Phase 3f: the legacy unrolled sweep (``build_program_unrolled`` →
+    ``upload_unrolled_tables`` → ``make_sweep_unrolled``: per supernode,
+    xfer-in, the broadcast of the whole Û buffer round by round, one
+    block-GEMM launch, the reduction of the whole partial, xfer-out and
+    the diagonal) on phase 3's prepared f64 values: one eager solve with
+    the launch counts zeroed before it and read after it, then a timed
+    one (CUDA events). Fails unless the rounds are the host program's
+    (:data:`UNROLLED_ROUNDS`), there is one launch per supernode with a
+    non-empty struct, all on the DMMA variant, the selected blocks are
+    within 1e-10·max|A⁻¹| of the dense inverse, the solve is within
+    1e-12·max|A⁻¹| of the overlapped one and a repeated solve is bitwise
+    equal. One solve is traced for its busy share."""
+    import torch
+    from repro_torch.core.pselinv_dist import (build_program_unrolled,
+                                               make_sweep_unrolled,
+                                               unrolled_moved,
+                                               upload_unrolled_tables)
+    from repro_torch.kernels import block_gemm as bg
+
+    eng, vals, out_ov = state["eng"], state["vals"], state["out"]
+    ref, scale = state["ref"], state["scale"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prog = build_program_unrolled(eng.bs, eng.nb, b, *grid)
+    tabs = upload_unrolled_tables(prog, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rounds, blocks = unrolled_moved(prog)
+    if rounds != UNROLLED_ROUNDS[setting]:
+        raise AssertionError(f"{setting} unrolled: {rounds} rounds, "
+                             f"expected {UNROLLED_ROUNDS[setting]}")
+    live = sum(1 for it in prog.iters if it.C)
+    sweep = make_sweep_unrolled(prog, tabs)
+    Lh, Dinv = (eng._as_tensor(v, torch.float64) for v in vals)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = sweep(Lh, Dinv)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    launches = read_counts()["block_gemm"]
+    variants = {" ".join(map(str, k)): c for k, c in bg.plans.items()}
+    if launches != live:
+        raise AssertionError(f"{setting} unrolled: {launches} block_gemm "
+                             f"launches, {live} supernodes with a struct")
+    if any(k[0] != "dmma_f64" for k in bg.plans):
+        raise AssertionError(f"{setting} unrolled: the f64 solve ran "
+                             f"{variants}, not only the DMMA variant")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    solve_ms, again = _events_ms(lambda: sweep(Lh, Dinv), reps=1)
+    if not torch.equal(again, out):
+        raise AssertionError(f"{setting} unrolled: repeated solve differs")
+    del again
+    err = (selected_blocks(out, eng, dev) - ref).abs().max().item()
+    if not err <= 1e-10 * scale:
+        raise AssertionError(f"{setting} unrolled: selected blocks max|Δ| "
+                             f"{err:.3e} > 1e-10 · max|A⁻¹| {scale:.3e}")
+    vs_ov = (out - out_ov).abs().max().item()
+    if not vs_ov <= 1e-12 * scale:
+        raise AssertionError(f"{setting} unrolled: max|Δ| {vs_ov:.3e} from "
+                             f"the overlapped solve > 1e-12 · max|A⁻¹| "
+                             f"{scale:.3e}")
+    log(f"{setting} unrolled:")
+    prof = profile_solve(lambda: sweep(Lh, Dinv))
+    wire = blocks * b * b * 8
+    log(f"{setting} unrolled: program + tables {build_s:.2f} s (host "
+        f"clock), {rounds} rounds, {blocks} blocks = {wire / 1e6:.1f} MB "
+        f"on the wire of a rank-process run; eager solve {eager_s * 1e3:.1f}"
+        f" ms (host clock, first), {solve_ms[0]:.1f} ms (CUDA events) "
+        f"against {state['solve_ms']:.1f} ms overlapped; {launches} "
+        f"block_gemm launches = {live} supernodes ({variants}); selected "
+        f"max|Δ| {err:.3e}; vs overlapped max|Δ| {vs_ov:.3e}"
+        + (" (bitwise equal)" if torch.equal(out, out_ov) else "")
+        + f"; repeated solve bitwise equal; peak {peak:.1f} GiB")
+    del out, sweep, tabs
+    return dict(rounds=rounds, wire_blocks=blocks, wire_bytes=wire,
+                build_s=build_s, eager_s=eager_s, solve_ms=solve_ms,
+                launches=launches, variants=variants, max_err=err,
+                vs_overlapped=vs_ov, peak_gib=peak, profile=prof)
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: the per-round profiling replay on the FEM setting
 # ---------------------------------------------------------------------------
 
@@ -1736,7 +1850,7 @@ def _ranked_solves(sweep, Lh, Dinv, dev, reps):
 
 
 def rank_main(rank, A, b, grid, tmp, hashes, reps, coll_numel, device,
-              t_spawn, ls_hashes=None, ls_reps=2):
+              t_spawn, ls_hashes=None, ls_reps=2, unrolled=None):
     """One rank of phase 8, in its own process: analyze (every rank;
     deterministic), this rank's view of the overlapped tables, its value
     shards from ``tmp``; then ``reps`` ranked f64 solves barrier to
@@ -1748,7 +1862,10 @@ def rank_main(rank, A, b, grid, tmp, hashes, reps, coll_numel, device,
     ``ls_reps`` solves, their send logs kept for the parent's
     ``lint_ranked`` and their shards against ``ls_hashes``. Then the tree collectives on a ``coll_numel``-element
     f32 tensor of integer values. ``stamps`` are wall-clock seconds since
-    the parent spawned (``t_spawn``), at each stage's end."""
+    the parent spawned (``t_spawn``), at each stage's end. With
+    ``unrolled`` (``{tag: (matrix, b, hashes)}``; a matrix of None is
+    ``A`` on this rank's shards) the unrolled sweep by the ranks on each
+    case (:func:`_rank_unrolled`), before the collectives."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1816,6 +1933,13 @@ def rank_main(rank, A, b, grid, tmp, hashes, reps, coll_numel, device,
                   sha1=ls_digest, bitwise=ls_digest == ls_hashes[rank])
         stamps["ls_solved"] = time.time() - t_spawn
         del out, sweep
+    unr = {}
+    for tag, (M, bu, hs) in (unrolled or {}).items():
+        unr[tag] = (_rank_unrolled(rank, dev, tag, M, bu, grid, hs, tmp)
+                    if M is not None else
+                    _rank_unrolled(rank, dev, tag, A, b, grid, hs, tmp, Lh,
+                                   Dinv))
+        stamps[f"unrolled_{tag}"] = time.time() - t_spawn
     del Lh, Dinv
 
     base = torch.arange(coll_numel, device=dev) % 1024
@@ -1838,7 +1962,116 @@ def rank_main(rank, A, b, grid, tmp, hashes, reps, coll_numel, device,
     stamps["collectives"] = time.time() - t_spawn
     return dict(rank=rank, analyze_s=analyze_s, runs=runs, sha1=digest,
                 bitwise=digest == hashes[rank], collectives=coll,
-                stamps=stamps, level_serial=ls)
+                stamps=stamps, level_serial=ls, unrolled=unr)
+
+
+def _rank_unrolled(rank, dev, tag, A, b, grid, hashes, tmp, Lh=None,
+                   Dinv=None):
+    """The unrolled sweep by this rank (``make_sweep_unrolled_ranked``)
+    on ``A``: its program, a warm-up, then one solve barrier to barrier
+    (:func:`_ranked_solves`), its shard's sha1 against ``hashes`` (a
+    differing shard is saved to ``tmp`` for the parent). Without ``Lh``
+    the rank prepares its own shards (deterministic host code)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.pselinv_dist import (analyze_structure,
+                                               build_program_unrolled,
+                                               make_sweep_unrolled_ranked,
+                                               prepare_values)
+
+    t0 = time.perf_counter()
+    bs, nb = analyze_structure(A, b, *grid)
+    prog = build_program_unrolled(bs, nb, b, *grid)
+    sweep = make_sweep_unrolled_ranked(prog, rank, None, dev)
+    if Lh is None:
+        lh, dinv = prepare_values(A, bs, nb, b, *grid)
+        Lh = torch.from_numpy(lh[rank]).to(dev)
+        Dinv = torch.from_numpy(dinv[rank]).to(dev)
+    analyze_s = time.perf_counter() - t0
+    dist.barrier()
+    t0 = time.perf_counter()
+    sweep(Lh, Dinv)
+    _sync(dev)
+    warm_s = time.perf_counter() - t0
+    runs, out = _ranked_solves(sweep, Lh, Dinv, dev, 1)
+    for run in runs:
+        run["rounds"] = run.pop("log")["rounds"]
+    digest = _sha1(out)
+    if digest != hashes[rank]:
+        np.save(tmp / f"unr_{tag}{rank}.npy", out.cpu().numpy())
+    return dict(analyze_s=analyze_s, warm_s=warm_s, runs=runs, sha1=digest,
+                bitwise=digest == hashes[rank])
+
+
+def ranked_unrolled(setting, rows, tag, prog, out, tmp):
+    """Phase 8's unrolled half for one case, read off the ranks' rows:
+    every shard bitwise the single-process unrolled solve's (``out``),
+    else within 1e-12·max|A⁻¹|; every rank counted the program's rounds;
+    the sent and received bytes of the solve the bytes reckoned from the
+    rounds (:func:`~repro_torch.core.pselinv_dist.unrolled_moved`, f64);
+    one block-GEMM launch a supernode with a struct, a rank, all on the
+    DMMA variant."""
+    import numpy as np
+    from repro_torch.core.pselinv_dist import unrolled_moved
+
+    P = len(rows)
+    us = [row["unrolled"][tag] for row in rows]
+    scale = out.abs().max().item()
+    for row, u in zip(rows, us):
+        u["max_abs_diff"] = 0.0
+        if not u["bitwise"]:
+            got = np.load(tmp / f"unr_{tag}{row['rank']}.npy")
+            u["max_abs_diff"] = float(np.abs(
+                got - out[row["rank"]].cpu().numpy()).max())
+    bad = [row["rank"] for row, u in zip(rows, us) if not u["bitwise"]
+           and not u["max_abs_diff"] <= 1e-12 * scale]
+    if bad:
+        raise AssertionError(f"{setting} ranked unrolled: ranks {bad} differ "
+                             "from the single-process unrolled solve by "
+                             f"more than 1e-12·max|A⁻¹| ({scale:.3e})")
+    rounds, blocks = unrolled_moved(prog)
+    want = blocks * prog.b ** 2 * 8
+    live = sum(1 for it in prog.iters if it.C)
+    runs = [u["runs"][0] for u in us]
+    if {x["rounds"] for x in runs} != {rounds}:
+        raise AssertionError(f"{setting} ranked unrolled: the ranks counted "
+                             f"{sorted({x['rounds'] for x in runs})} rounds,"
+                             f" the program has {rounds}")
+    if [x["launches"] for x in runs] != [live] * P or any(
+            x["variants"] != ["dmma_f64"] for x in runs):
+        raise AssertionError(f"{setting} ranked unrolled: "
+                             f"{[x['launches'] for x in runs]} GEMM "
+                             f"launches, {live} a rank expected, all "
+                             "dmma_f64")
+    sent = sum(x["sent"][1] for x in runs)
+    recv = sum(x["received"][1] for x in runs)
+    if not sent == recv == want:
+        raise AssertionError(f"{setting} ranked unrolled: sent {sent} B, "
+                             f"received {recv} B, reckoned from the rounds "
+                             f"{want} B")
+    solve_ms = max(x["barrier_s"] for x in runs) * 1e3
+    wall = [x["wall_s"] * 1e3 for x in runs]
+    wire = [(x["rounds_s"] - x["sync_s"]) * 1e3 for x in runs]
+    sync = [x["sync_s"] * 1e3 for x in runs]
+    log(f"{setting}: ranked unrolled solve {solve_ms:.1f} ms barrier to "
+        f"barrier (max over ranks; warm-up "
+        f"{max(u['warm_s'] for u in us):.2f} s), {rounds} rounds, sent "
+        f"{sent} B = reckoned from the rounds; per rank wall "
+        f"{[round(w, 1) for w in wall]} ms, of it on the wire "
+        f"{[round(w, 1) for w in wire]} ms and waiting for the card "
+        f"{[round(w, 1) for w in sync]} ms; {P} × {live} block GEMM "
+        "launches, all dmma_f64; shards "
+        + ("all bitwise equal to the single-process unrolled solve"
+           if all(u["bitwise"] for u in us) else
+           f"within max|Δ| {max(u['max_abs_diff'] for u in us):.3e} of it "
+           f"(1e-12·max|A⁻¹| = {1e-12 * scale:.3e})"))
+    return dict(solve_ms=solve_ms, rounds=rounds, sent_bytes=want,
+                launches=sum(x["launches"] for x in runs),
+                warm_s=max(u["warm_s"] for u in us), wall_ms=wall,
+                wire_ms=wire, sync_ms=sync,
+                bitwise=[u["bitwise"] for u in us],
+                max_abs_diff=max(u["max_abs_diff"] for u in us))
 
 
 def _diag_sum_per_rank(Ainv, U, lv):
@@ -1960,7 +2193,7 @@ def ranked_level_serial(setting, eng_ls, rows, scale, reps):
 
 
 def multirank_path(dev, setting, state, b, grid=(4, 2), reps=3,
-                   coll_numel=COLL_NUMEL, ls_reps=2):
+                   coll_numel=COLL_NUMEL, ls_reps=2, lap=(32, 8)):
     """Phase 8: phase 3's FEM f64 solve by ``pr·pc`` rank processes on
     the one card (``comm.p2p.spawn``, gloo, CUDA payloads staged through
     pinned host memory), each over its own view of the tables and its own
@@ -1973,21 +2206,45 @@ def multirank_path(dev, setting, state, b, grid=(4, 2), reps=3,
     warm-up) against a single-process level-serial solve of the same
     values, its send logs held to the plan (``lint_ranked``; the op-layer
     check of a rank's sweep runs only in the card test
-    ``test_ranked_level_serial_on_the_card``); then times
-    three tree
-    collectives on ``coll_numel`` f32 elements a rank, whose integer
-    results must be exact."""
+    ``test_ranked_level_serial_on_the_card``); then the legacy unrolled
+    sweep by the same ranks (``make_sweep_unrolled_ranked``, every round
+    one message of the JAX round's payload) on ``laplacian_2d(*lap)`` at
+    b=8 and on phase 3's FEM values, a warm-up and one solve each,
+    against a single-process unrolled solve (:func:`ranked_unrolled`);
+    then times three tree collectives on ``coll_numel`` f32 elements a
+    rank, whose integer results must be exact."""
     import shutil
     import tempfile
 
     import numpy as np
+    import torch
     from repro_torch.comm import p2p
+    from repro_torch.core import sparse
     from repro_torch.core.engine import Grid, PSelInvEngine
+    from repro_torch.core.pselinv_dist import (analyze_structure,
+                                               build_program_unrolled,
+                                               make_sweep_unrolled,
+                                               prepare_values,
+                                               upload_unrolled_tables)
     from repro_torch.core.simulator import executed_wire_bytes
 
     eng, vals, out, A = (state[k] for k in ("eng", "vals", "out", "A"))
     P = grid[0] * grid[1]
     moved = eng.moved()[1]
+    # the single-process unrolled solves the ranked ones are held to
+    A_lap = sparse.laplacian_2d(*lap)
+    bs_lap, nb_lap = analyze_structure(A_lap, 8, *grid)
+    unr_progs = {"lap": build_program_unrolled(bs_lap, nb_lap, 8, *grid),
+                 "fem": build_program_unrolled(eng.bs, eng.nb, b, *grid)}
+    lap_vals = [torch.as_tensor(x, device=dev) for x in
+                prepare_values(A_lap, bs_lap, nb_lap, 8, *grid)]
+    fem_vals = [eng._as_tensor(v, torch.float64) for v in vals]
+    unr_outs = {tag: make_sweep_unrolled(
+        prog, upload_unrolled_tables(prog, dev))(*v) for (tag, prog), v in
+        zip(unr_progs.items(), (lap_vals, fem_vals))}
+    del lap_vals, fem_vals
+    unrolled = {"lap": (A_lap, 8, [_sha1(o) for o in unr_outs["lap"]]),
+                "fem": (None, b, [_sha1(o) for o in unr_outs["fem"]])}
     if executed_wire_bytes(eng) != moved:
         raise AssertionError(f"{setting}: executed_wire_bytes "
                              f"{executed_wire_bytes(eng)} != moved {moved}")
@@ -2010,7 +2267,7 @@ def multirank_path(dev, setting, state, b, grid=(4, 2), reps=3,
         t0 = time.perf_counter()
         rows = p2p.spawn(rank_main, P, A, b, grid, tmp, hashes, reps,
                          coll_numel, str(dev), time.time(), ls_hashes,
-                         ls_reps, timeout=600)
+                         ls_reps, unrolled, timeout=900)
         spawn_s = time.perf_counter() - t0
         scale = out.abs().max().item()
         for row in rows:
@@ -2027,6 +2284,10 @@ def multirank_path(dev, setting, state, b, grid=(4, 2), reps=3,
                     got - out_ls[row["rank"]].cpu().numpy()).max())
         diff_op = (None if all(row["bitwise"] for row in rows)
                    else differing_op(eng, vals, rows))
+        unr = {tag: ranked_unrolled(
+            f"laplacian_2d{lap} b=8" if tag == "lap" else setting, rows,
+            tag, unr_progs[tag], unr_outs[tag], tmp) for tag in unr_progs}
+        del unr_outs
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     level_serial = ranked_level_serial(setting, eng_ls, rows, scale,
@@ -2112,10 +2373,11 @@ def multirank_path(dev, setting, state, b, grid=(4, 2), reps=3,
             f"{coll[name]['staged']} B")
     return dict(setting=setting, ranks=P, gemm_ops=gemm_ops, stages=stages,
                 differing_op=diff_op, max_ainv=scale,
-                level_serial=level_serial,
+                level_serial=level_serial, unrolled=unr,
                 launches=sum(x["launches"] for row in rows
                              for x in row["runs"])
-                + level_serial["launches"],
+                + level_serial["launches"]
+                + sum(u["launches"] for u in unr.values()),
                 moved_bytes=moved, solve_ms=solve_ms,
                 single_ms=state["solve_ms"], spawn_s=spawn_s,
                 stage_s=stage_s, collectives=coll,
@@ -2395,6 +2657,100 @@ def ops_path(dev, main=OPS_MAIN):
     return dict(rows=rows, launches=counts, variants=variants, held=held)
 
 
+# ---------------------------------------------------------------------------
+# phase 9b: the port's benchmark CLI on the card, and the size baseline
+# ---------------------------------------------------------------------------
+
+#: the speed ratios the JAX bench asserts on a CPU host, and their bars
+SPEED_BARS = (("engine_batched_speedup", "batched B=16 over sequential"),
+              ("serve_throughput_rps", "coalesced serving over sequential"),
+              ("trace_overhead_pct", "tracing tax on the solve"))
+
+
+def bench_path(dev, only="kernels,selinv,treecomm", timeout=600):
+    """Phase 9b: ``python -m repro_torch.benchmarks.run --only <only>
+    --json build/bench_torch.json`` as a subprocess on the card. Fails
+    unless it exits 0 and its session holds every row
+    ``tools.record_bench`` requires (recorded, as that tool records it,
+    into ``build/bench_torch_history.json``). Prints the speed ratios the
+    JAX bench asserts and whether each met its bar here; then loads the
+    size baseline from the committed ``BENCH_pselinv_torch.json`` (its
+    newest card entry, ``exec_verify.load_size_baseline``) and lints the
+    nb=16 4×2 f32 stream class on the card against it
+    (``engine.lint_compiled(baseline=)``): no diagnostic, so a graph or an
+    op count grown past the ratio over the recorded one fails here."""
+    import os
+
+    import torch
+    from repro_torch.core import sparse
+    from repro_torch.core.engine import Grid, PlanOptions, PSelInvEngine
+    from repro_torch.core.exec_verify import load_size_baseline
+    from repro_torch.tools import record_bench
+
+    OUT_DIR.mkdir(exist_ok=True)
+    session = OUT_DIR / "bench_torch.json"
+    hist = OUT_DIR / "bench_torch_history.json"
+    for p in (session, hist):
+        if p.exists():
+            p.unlink()
+    PSelInvEngine.clear_cache()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.run", "--only", only,
+         "--json", str(session), "--device", dev.type], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=timeout)
+    wall_s = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        log(f"  bench: {line}")
+    if r.returncode:
+        raise AssertionError(f"benchmarks.run exited {r.returncode}:\n"
+                             f"{r.stderr[-4000:]}")
+    record_bench.main(["--session", str(session), "--only", only,
+                       "--device", dev.type, "--rev", "chip_smoke",
+                       "--out", str(hist)])
+    rows = {row["name"]: row
+            for row in json.loads(session.read_text())["benches"]}
+    ratios = {}
+    for name, what in SPEED_BARS:
+        row = rows[f"selinv/{name}"]
+        met = re.search(r"bar=(\S+) met=(\w+)", row["derived"])
+        value = row["us_per_call"]
+        if name == "serve_throughput_rps":
+            value = float(re.search(r"speedup=(\S+)",
+                                    row["derived"]).group(1))
+        ratios[name] = dict(value=value, bar=met.group(1),
+                            met=met.group(2) == "True")
+        log(f"  {what}: {value:.2f} against the JAX bar {met.group(1)} — "
+            + ("met" if ratios[name]["met"] else "NOT met") + " on this card")
+    recorded = ROOT / "BENCH_pselinv_torch.json"
+    baseline = load_size_baseline(str(recorded))
+    if baseline is None:
+        raise AssertionError(f"no card entry with a size baseline in "
+                             f"{recorded.name}")
+    eng = PSelInvEngine.analyze(sparse.laplacian_2d(16, 8), b=8,
+                                grid=Grid(4, 2),
+                                options=PlanOptions(stream=True), device=dev)
+    lint = eng.lint_compiled(dtype=torch.float32, baseline=baseline)
+    if len(lint):
+        raise AssertionError("the nb=16 4x2 stream class against its size "
+                             f"baseline {baseline}: "
+                             + "; ".join(map(str, lint)))
+    log(f"benchmarks.run --only {only} on the card: exit 0 in {wall_s:.1f}"
+        f" s (host clock), {len(rows)} rows, every required row present; "
+        f"size baseline {baseline} from {recorded.name}; the nb=16 4x2 f32 "
+        f"stream class lints clean against it (graph kernels "
+        f"{lint.info.get('graph_kernels')}, dispatched ops "
+        f"{lint.info['dispatched_ops']})")
+    del eng
+    PSelInvEngine.clear_cache()
+    return dict(wall_s=wall_s, rows=len(rows), ratios=ratios,
+                baseline=baseline,
+                lint=dict(graph_kernels=lint.info.get("graph_kernels"),
+                          dispatched_ops=lint.info["dispatched_ops"]))
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -2444,6 +2800,7 @@ def main() -> int:
     fem["capture"] = {}
     fem["executors"] = executor_path(dev, fem["setting"], fem["_state"], 96,
                                      batch=True, captures=fem["capture"])
+    fem["unrolled"] = unrolled_path(dev, fem["setting"], fem["_state"], 96)
     fem["round_profile"] = profile_path(dev, fem["setting"], fem["_state"])
     fem["serve"] = serve_path(dev, fem["setting"], fem["_state"], 96)
     blocks = {k: fem["_state"][k] for k in ("A", "got", "ref")}
@@ -2453,6 +2810,7 @@ def main() -> int:
     dg["capture"] = {}
     dg["executors"] = executor_path(dev, dg["setting"], dg["_state"], 128,
                                     captures=dg["capture"])
+    dg["unrolled"] = unrolled_path(dev, dg["setting"], dg["_state"], 128)
     release(dg)
     settings = [fem, dg]
     lint_neg = mutated_lint(dev)
@@ -2462,6 +2820,7 @@ def main() -> int:
              "isolation": isolation_path(dev)}
     batched_path(dev)
     ops = ops_path(dev)
+    bench = bench_path(dev)
     for r in rows + new_rows:    # ptxas's report of the instance each ran
         if "symbol" in r:
             lib = next(n for n in KERNELS
@@ -2484,7 +2843,9 @@ def main() -> int:
                        for ex, r in s_["executors"].items()},
                 **{f"{s_['setting']} {ex} graph": r["plans"]
                    for s_ in settings
-                   for ex, r in s_["capture"].items()}},
+                   for ex, r in s_["capture"].items()},
+                **{f"{s_['setting']} unrolled": s_["unrolled"]["variants"]
+                   for s_ in settings}},
                 "trsm": {"serial": serial["backends"]["cuda"]["variants"],
                          "ops": ops["variants"]["trsm"]},
                 "rmsnorm": ops["variants"]["rmsnorm"],
@@ -2493,6 +2854,7 @@ def main() -> int:
         "block_gemm": sum(s_["launches"] for s_ in settings)
         + sum(r["launches"] for s_ in settings
               for r in s_["executors"].values())
+        + sum(s_["unrolled"]["launches"] for s_ in settings)
         + sum(r["launches"] + r["lint"]["launches"] for s_ in settings
               for r in s_["capture"].values())
         + lint_neg["launches"]
@@ -2544,7 +2906,7 @@ def main() -> int:
          "wall_s": wall_s, "kernel_rows": rows, "new_kernel_rows": new_rows,
          "main_path": settings, "lint_negative": lint_neg,
          "serial": serial, "serve": serve,
-         "ops_path": ops,
+         "ops_path": ops, "bench": bench,
          "sass": sass, "ptxas": ptxas, "kernels": kernels}, indent=1,
         default=str))
     log(f"total wall {wall_s:.1f} s (host clock, build included)")

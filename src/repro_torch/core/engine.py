@@ -630,7 +630,8 @@ class PSelInvEngine:
     def lint_compiled(self, batched: bool = False,
                       dtype: torch.dtype = torch.float32,
                       batch_size: int = 1, *,
-                      verify_compiled: str | None = None):
+                      verify_compiled: str | None = None,
+                      baseline: Dict[str, float] | None = None):
         """The executed-communication verifier (``core/exec_verify.py``)
         over the session's sweep on its own device, at three layers —
         the twin of the JAX engine's three-layer HloLint:
@@ -655,12 +656,16 @@ class PSelInvEngine:
         Measured once per (batched, B, dtype) class and cached. Returns
         an :class:`~.exec_verify.LintResult` — the diagnostics, as a
         list, with ``info`` (layers, recorded and expected wire blocks,
-        op counts, ``lint_s``). ``verify_compiled`` applies an
+        op counts, ``lint_s``). With a ``baseline``
+        (:func:`~.exec_verify.load_size_baseline`) the class's graph
+        kernels (on the card) and the eager sweep's dispatched ops are
+        held to it (:func:`~.exec_verify.check_size`, WARN past
+        ``SIZE_REGRESS_RATIO``). ``verify_compiled`` applies an
         enforcement mode (``"error"`` raises
         :class:`~.verify.PlanVerificationError` on any ERROR diagnostic,
         ``"warn"`` warns once; None just returns the result)."""
         from .exec_verify import (LintResult, check_collectives,
-                                  check_tables, lint_ops)
+                                  check_size, check_tables, lint_ops)
         from .verify import _err, enforce_verification
 
         key = (batched, int(batch_size) if batched else 1, dtype)
@@ -697,6 +702,11 @@ class PSelInvEngine:
                 res.info.update(layers=layers, gemm_ops=self.gemm_ops(),
                                 lint_s=time.perf_counter() - t0)
                 self._exec_lint[key] = res
+        if baseline:
+            res = LintResult(list(res) + check_size(
+                {k: res.info.get(k) for k in ("graph_kernels",
+                                              "dispatched_ops")},
+                baseline), **res.info)
         if verify_compiled is not None:
             enforce_verification(
                 res, mode=verify_compiled,

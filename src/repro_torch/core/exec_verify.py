@@ -83,8 +83,8 @@ __all__ = [
     "HLO_CODES", "SIZE_REGRESS_RATIO", "ExpectedPermute", "LintResult",
     "expected_permutes", "expected_wire_blocks", "port_wire_blocks",
     "stream_landings", "recorded_wire_blocks", "check_collectives",
-    "check_tables", "check_hygiene", "check_size", "lint_ops",
-    "lint_program", "lint_ranked",
+    "check_tables", "check_hygiene", "load_size_baseline", "check_size",
+    "lint_ops", "lint_program", "lint_ranked",
 ]
 
 #: every diagnostic code this linter can emit, and what it means
@@ -545,13 +545,45 @@ def check_hygiene(rec: Record, *, layer: str = "eager",
     return diags
 
 
+def load_size_baseline(path: str = "BENCH_pselinv_torch.json"
+                       ) -> Optional[Dict[str, float]]:
+    """The recorded size baseline of the nb=16 4×2 f32 single-matrix
+    class — ``{"graph_kernels": …, "dispatched_ops": …}`` of its stream
+    sweep, from the rows ``selinv/sweep_stream_graph_kernels`` and
+    ``…_dispatched_ops`` of the newest entry of the port's bench history
+    (``repro_torch.tools.record_bench``) taken on the card. None when the
+    file is missing or corrupt or holds no such entry: a CPU entry
+    captures no graph, and its op counts are those of the plain
+    versions."""
+    import json
+    import os
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            hist = json.load(f)
+        for entry in reversed(hist):
+            if entry.get("device") != "cuda":
+                continue
+            rows = {r.get("name"): r.get("us_per_call")
+                    for r in entry.get("benches", [])}
+            got = {k: rows.get(f"selinv/sweep_stream_{k}")
+                   for k in ("graph_kernels", "dispatched_ops")}
+            if all(isinstance(v, (int, float)) and v > 0
+                   for v in got.values()):
+                return {k: float(v) for k, v in got.items()}
+    except (ValueError, KeyError, TypeError, AttributeError, OSError):
+        return None                             # corrupt history
+    return None
+
+
 def check_size(metrics: Dict[str, float],
                baseline: Optional[Dict[str, float]], *,
                ratio: float = SIZE_REGRESS_RATIO
                ) -> List[PlanDiagnostic]:
     """WARN when a captured graph's ``graph_kernels`` or a sweep's
     ``dispatched_ops`` regressed more than ``ratio`` × over a recorded
-    baseline. Does nothing without one (the port records none yet)."""
+    baseline (:func:`load_size_baseline`). Does nothing without one."""
     if not baseline:
         return []
     diags: List[PlanDiagnostic] = []
@@ -606,12 +638,15 @@ def _sweep_of(prog, device):
 
 def lint_program(prog, *, batched: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 batch_size: int = 1) -> LintResult:
+                 batch_size: int = 1,
+                 baseline: Optional[Dict[str, float]] = None) -> LintResult:
     """Lint a program end to end without a card: its own sweep (per
     whichever executor lowering it carries) runs once over tables and
     values on the ``meta`` device — every op checks its shapes and
     dtypes and computes nothing — under the recorder and the op layer.
-    The twin of the JAX lint on an abstract mesh."""
+    The twin of the JAX lint on an abstract mesh. With a ``baseline``
+    (:func:`load_size_baseline`) the sweep's dispatched ops are held to
+    it (:func:`check_size`)."""
     dev = torch.device("meta")
     tabs, mk = _sweep_of(prog, dev)
     shape = ((int(batch_size),) if batched else ()) + (
@@ -621,8 +656,12 @@ def lint_program(prog, *, batched: bool = False,
     sweep = mk(prog, tabs, batched=batched)
     with exec_ir.record() as rec, exec_ir.ops_layer(rec):
         sweep(Lh, Dinv)
-    return lint_ops(rec, prog, batch=int(batch_size) if batched else 1,
-                    layer="meta")
+    res = lint_ops(rec, prog, batch=int(batch_size) if batched else 1,
+                   layer="meta")
+    if baseline:
+        res = LintResult(list(res) + check_size(
+            {"dispatched_ops": rec.dispatched}, baseline), **res.info)
+    return res
 
 
 def lint_ranked(logs: Sequence, prog, *, batch: int = 1,

@@ -27,19 +27,27 @@ overlapped sweep the other way: each rank a process of a
                                   slots
               ``make_sweep_segments``  the overlapped sweep cut at round
                                   boundaries, for ``obs.rounds``
+              ``make_sweep_unrolled``  the legacy per-supernode sweep
+                                  (``build_program_unrolled``,
+                                  ``upload_unrolled_tables``): whole
+                                  buffers broadcast and reduced round by
+                                  round, one GEMM launch a supernode
   ranks       ``run_distributed`` the overlapped sweep (``rank_tables``,
                                   ``make_sweep_overlapped_ranked``) or the
                                   level-serial one (``rank_exec_tables``,
-                                  ``make_sweep_ranked``) by ``pr·pc`` rank
-                                  processes, its permutes as ``comm.p2p``
-                                  messages
+                                  ``make_sweep_ranked``) or the unrolled
+                                  one (``make_sweep_unrolled_ranked``) by
+                                  ``pr·pc`` rank processes, its permutes
+                                  as ``comm.p2p`` messages
 
 Every executor reports the permutes it runs to an active
 :mod:`.exec_ir` record (the executed-communication verifier,
 :mod:`.exec_verify`), from host lists kept at upload.
 
-Every executor runs each level's masked GEMM in the hand-written
-block-GEMM kernel (``ops.pselinv_round_gemm``).
+Every executor runs each level's (the unrolled one: each supernode's)
+masked GEMM in the hand-written block-GEMM kernel
+(``ops.pselinv_round_gemm``). The unrolled sweep reports nothing to the
+recorder: the verifier's corpus is the IR executors.
 
 What the SPMD primitives become:
 
@@ -78,14 +86,14 @@ from ..kernels.ops import pselinv_round_gemm
 from ..obs.trace import TRACER
 from . import exec_ir
 from .plan import (CommPlan, ExecPlan, OverlappedExec, PlanOptions,
-                   build_plan, compile_exec, schedule_overlapped,
-                   schedule_stream)
+                   build_plan, compile_exec, merge_round_lists,
+                   schedule_overlapped, schedule_stream)
 from .schedule import Grid2D
 from .selinv import normalize_factors
 from .stream import COMP_KIND_ID, COMP_NOOP, StreamTables
 from .supernodal_lu import factorize
 from .symbolic import BlockStructure, symbolic_factorize
-from .trees import TreeKind
+from .trees import CommTree, TreeKind, build_tree, stable_hash
 
 __all__ = ["PSelInvProgram", "build_program", "SweepTables",
            "ExecTables", "StreamSweepTables", "upload_tables",
@@ -94,6 +102,9 @@ __all__ = ["PSelInvProgram", "build_program", "SweepTables",
            "make_sweep_segments", "rank_tables",
            "make_sweep_overlapped_ranked", "rank_exec_tables",
            "make_sweep_ranked", "CommSlot", "RankRound",
+           "build_program_unrolled", "UnrolledTables", "UnrolledIter",
+           "upload_unrolled_tables", "make_sweep_unrolled",
+           "make_sweep_unrolled_ranked", "unrolled_moved",
            "check_grid_devices",
            "prepare_inputs", "run_distributed",
            "validate_uniform_widths", "pad_nb", "analyze_structure",
@@ -116,6 +127,7 @@ class PSelInvProgram:
     exec_plan: Optional[ExecPlan] = None
     overlap_plan: Optional[OverlappedExec] = None
     stream_tables: Optional[StreamTables] = None
+    iters: Optional[List["_IterSchedule"]] = None
 
     @property
     def nbr(self) -> int:
@@ -1510,6 +1522,451 @@ def make_sweep_stream(prog: PSelInvProgram, tables: StreamSweepTables,
 
 
 # ---------------------------------------------------------------------------
+# the legacy unrolled sweep: one supernode at a time (the pre-IR executor)
+# ---------------------------------------------------------------------------
+
+def _pack_rounds(pairs: List[Tuple[int, int, int]]):
+    """Greedy-pack (src, dst, key) transfers into permute rounds with
+    unique sources and destinations per round."""
+    rounds: List[List[Tuple[int, int, int]]] = []
+    for p in pairs:
+        for rnd in rounds:
+            if all(p[0] != q[0] and p[1] != q[1] for q in rnd):
+                rnd.append(p)
+                break
+        else:
+            rounds.append([p])
+    return rounds
+
+
+def _merge_tree_rounds(trees: Sequence[Tuple[CommTree, callable]], op: str):
+    """Merge several disjoint-group trees into shared global-id rounds
+    (``mapper`` translates tree coordinates to global rank ids) through
+    the IR's :func:`~.plan.merge_round_lists`."""
+    per_tree = []
+    for tree, mapper in trees:
+        rounds = tree.bcast_rounds() if op == "bcast" else tree.reduce_rounds()
+        per_tree.append([[(mapper(s), mapper(d)) for (s, d) in rnd]
+                         for rnd in rounds])
+    return merge_round_lists(per_tree, op)
+
+
+@dataclass
+class _IterSchedule:
+    K: int
+    C: List[int]
+    xfer_in_rounds: list          # rounds of (src, dst, I)
+    xfer_in_local: List[int]      # I with owner(I,K) == owner(K,I)
+    bcast_rounds: list            # merged global-id rounds
+    reduce_rounds: list
+    xfer_out_rounds: list         # rounds of (src, dst, J)
+    xfer_out_local: List[int]
+    diag_reduce_rounds: list
+    col_mask: np.ndarray          # (NBc, pc) 1.0 where global col in C
+    row_mask: np.ndarray          # (NBr, pr)
+
+
+def build_program_unrolled(bs: BlockStructure, nb: int, b: int, pr: int,
+                           pc: int, kind: TreeKind = TreeKind.SHIFTED
+                           ) -> PSelInvProgram:
+    """The pre-IR per-supernode schedule (one tree per grid column/row per
+    supernode, re-derived here rather than read from the CommPlan) — the
+    host code of ``repro/core/pselinv_dist.py:build_program_unrolled``,
+    same arguments, same ``iters``."""
+    if nb % pr or nb % pc:
+        raise ValueError(f"nb={nb} not divisible by grid {pr}x{pc}")
+    nbr, nbc = nb // pr, nb // pc
+
+    def owner(I: int, J: int) -> int:
+        return (I % pr) * pc + (J % pc)
+
+    iters: List[_IterSchedule] = []
+    for K in range(nb - 1, -1, -1):
+        C = [int(i) for i in bs.struct[K]] if K < bs.nsuper else []
+        krow, kcol = K % pr, K % pc
+
+        # (a) xfer-in
+        pairs, local = [], []
+        for I in C:
+            s, d = owner(I, K), owner(K, I)
+            (local if s == d else pairs).append(
+                I if s == d else (s, d, I))
+        xfer_in_rounds = _pack_rounds(pairs)
+
+        # (b) col-bcast: per grid column, tree over participant rows
+        rows = sorted({J % pr for J in C})
+        recv_rows = [r for r in rows if r != krow]
+        bcast_trees = []
+        if recv_rows:
+            for c in range(pc):
+                tag = stable_hash(K, c, 0xB)
+                tree = build_tree(kind, krow, recv_rows, tag=tag)
+                bcast_trees.append(
+                    (tree, (lambda cc: (lambda r: r * pc + cc))(c)))
+        bcast_rounds = _merge_tree_rounds(bcast_trees, "bcast")
+
+        # (c) row-reduce: per grid row, tree over participant cols
+        cols = sorted({I % pc for I in C} | {kcol})
+        recv_cols = [c for c in cols if c != kcol]
+        red_trees = []
+        if recv_cols:
+            for r in range(pr):
+                tag = stable_hash(K, r, 0xC)
+                tree = build_tree(kind, kcol, recv_cols, tag=tag)
+                red_trees.append(
+                    (tree, (lambda rr: (lambda c: rr * pc + c))(r)))
+        reduce_rounds = _merge_tree_rounds(red_trees, "reduce")
+
+        # (f) xfer-out (transpose to upper)
+        pairs, localo = [], []
+        for J in C:
+            s, d = owner(J, K), owner(K, J)
+            (localo if s == d else pairs).append(
+                J if s == d else (s, d, J))
+        xfer_out_rounds = _pack_rounds(pairs)
+
+        # (g) diagonal reduce within grid row krow
+        diag_trees = []
+        if recv_cols:
+            tag = stable_hash(K, 0xD)
+            tree = build_tree(kind, kcol, recv_cols, tag=tag)
+            diag_trees.append((tree, lambda c: krow * pc + c))
+        diag_reduce_rounds = _merge_tree_rounds(diag_trees, "reduce")
+
+        mask = np.zeros(nb)
+        for I in C:
+            mask[I] = 1.0
+        iters.append(_IterSchedule(
+            K=K, C=C, xfer_in_rounds=xfer_in_rounds, xfer_in_local=local,
+            bcast_rounds=bcast_rounds, reduce_rounds=reduce_rounds,
+            xfer_out_rounds=xfer_out_rounds, xfer_out_local=localo,
+            diag_reduce_rounds=diag_reduce_rounds,
+            col_mask=mask.reshape(nbc, pc), row_mask=mask.reshape(nbr, pr)))
+
+    return PSelInvProgram(nb=nb, b=b, pr=pr, pc=pc, kind=kind, bs=bs,
+                          iters=iters)
+
+
+def unrolled_moved(prog: PSelInvProgram) -> Tuple[int, int]:
+    """(rounds, blocks) the unrolled sweep moves between ranks, read off
+    the host schedule: one ``(b, b)`` block a pair of an xfer or diagonal
+    round, the whole Û buffer (``nbc`` blocks) a pair of a broadcast
+    round and the whole partial (``nbr`` blocks) a pair of a reduction
+    round — what each JAX round ships. Owner-local moves are not
+    counted."""
+    if prog.iters is None:
+        raise ValueError("build_program_unrolled() first")
+    rounds = blocks = 0
+    for it in prog.iters:
+        for rnds, width in ((it.xfer_in_rounds, 1),
+                            (it.bcast_rounds, prog.nbc),
+                            (it.reduce_rounds, prog.nbr),
+                            (it.xfer_out_rounds, 1),
+                            (it.diag_reduce_rounds, 1)):
+            rounds += len(rnds)
+            blocks += width * sum(len(r) for r in rnds)
+    return rounds, blocks
+
+
+@dataclass
+class UnrolledIter:
+    """Supernode K of the unrolled sweep on one device: the owner
+    ``root`` of (K, K) and its flat A⁻¹ ``slot``; the nk=1 compute masks
+    ``lv`` (None when struct(K) is empty: the owner's A⁻¹(K,K) is D⁻¹);
+    the fused xfer-in (flat L̂ gather over ``P·N`` blocks, flat Û scatter
+    over ``P·nbc``) and xfer-out (flat A⁻¹ gather of column K, scatter
+    into row K) addresses, owner-local moves and every round's pairs in
+    one index pair each — every target is written once, so the rounds of
+    an xfer phase commute; and each tree round's (src, dst) rank
+    tensors for the broadcast, the row reduction and the diagonal
+    reduction, which run one after another (tree nodes forward what they
+    received)."""
+    K: int
+    root: int
+    slot: int
+    lv: Optional[LevelTables]
+    xin: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    xout: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    bcast: List[Tuple[torch.Tensor, torch.Tensor]] = field(
+        default_factory=list)
+    reduce: List[Tuple[torch.Tensor, torch.Tensor]] = field(
+        default_factory=list)
+    diag: List[Tuple[torch.Tensor, torch.Tensor]] = field(
+        default_factory=list)
+
+
+@dataclass
+class UnrolledTables:
+    """Every table the unrolled sweep reads, on one device."""
+    device: torch.device
+    P: int
+    N: int
+    iters: List[UnrolledIter]
+    nbytes: int = 0
+
+
+def _unrolled_levels(prog: PSelInvProgram, ranks: np.ndarray,
+                     up) -> List[Optional[LevelTables]]:
+    """The nk=1 compute masks of every supernode with a non-empty
+    struct, for the ranks ``ranks`` (all P, or one rank process's own),
+    stacked over supernodes into one upload a mask: ``cm`` the struct
+    columns at each rank's grid column, ``w`` the column-write rows at the
+    owners of column K, ``rm`` grid row K%pr, ``droot`` the owner of
+    (K, K)."""
+    pr, pc, nbc = prog.pr, prog.pc, prog.nbc
+    r, c = ranks // pc, ranks % pc
+    live = [it for it in prog.iters if it.C]
+    if not live:
+        return [None] * len(prog.iters)
+    K = np.array([it.K for it in live])
+    krow, kcol, kr, kc = K % pr, K % pc, K // pr, K // pc
+    cm = np.stack([it.col_mask.T[c] > 0 for it in live])[:, :, None, :]
+    w = np.stack([(it.row_mask.T[r] > 0) & (c == q)[:, None]
+                  for it, q in zip(live, kcol)])[..., None]
+    rm = (r[None, :] == krow[:, None])[:, :, None]
+    droot = (ranks[None, :] == (krow * pc + kcol)[:, None])[:, :, None]
+    cm, w, rm, droot = (up(x, torch.bool) for x in (cm, w, rm, droot))
+    idx = up(np.stack([kc, kr, kr * nbc + kc]))[:, :, None]
+    out, j = [], 0
+    for it in prog.iters:
+        if not it.C:
+            out.append(None)
+            continue
+        out.append(LevelTables(
+            nk=1, cm=cm[j], kcs=idx[0, j], w=w[j], krs=idx[1, j],
+            rm=rm[j], dslot=idx[2, j], dslot_c=idx[2, j], droot=droot[j]))
+        j += 1
+    return out
+
+
+def upload_unrolled_tables(prog: PSelInvProgram, device) -> UnrolledTables:
+    """Lower the unrolled schedule (:func:`build_program_unrolled`) to
+    device tensors — once per session, every address in one upload and
+    checked against the buffer it indexes, every scatter target checked
+    to be written once."""
+    from .device import resolve_device
+
+    if prog.iters is None:
+        raise ValueError("build_program_unrolled() first")
+    dev = resolve_device(device)
+    pr, pc, nbr, nbc = prog.pr, prog.pc, prog.nbr, prog.nbc
+    P, N = pr * pc, nbr * nbc
+    up = _uploader(dev)
+    levels = _unrolled_levels(prog, np.arange(P), up)
+    parts: List[np.ndarray] = []
+
+    def add(name, a, hi, unique=False):
+        a = np.asarray(a, np.int64).reshape(-1)
+        _in_bounds(name, a, hi)
+        if unique and len(set(a.tolist())) != a.size:
+            raise ValueError(f"{name} writes one target twice")
+        parts.append(a)
+        return len(parts) - 1
+
+    plan = []
+    for it, lv in zip(prog.iters, levels):
+        K = it.K
+        krow, kcol, kr, kc = K % pr, K % pc, K // pr, K // pc
+        e = dict(K=K, root=krow * pc + kcol, slot=kr * nbc + kc, lv=lv)
+        if it.C:
+            name = f"supernode {K}"
+            xin = ([(I, I) for I in it.xfer_in_local]
+                   + [(I, d) for rnd in it.xfer_in_rounds for _, d, I in rnd])
+            src = [((I % pr) * pc + kcol) * N + (I // pr) * nbc + kc
+                   for I, _ in xin]
+            dst = [(krow * pc + I % pc) * nbc + I // pc for I, _ in xin]
+            e["xin"] = (add(f"{name} xfer_in gather", src, P * N),
+                        add(f"{name} xfer_in scatter", dst, P * nbc, True))
+            xout = (list(it.xfer_out_local)
+                    + [J for rnd in it.xfer_out_rounds for _, _, J in rnd])
+            src = [((J % pr) * pc + kcol) * N + (J // pr) * nbc + kc
+                   for J in xout]
+            dst = [(krow * pc + J % pc) * N + kr * nbc + J // pc
+                   for J in xout]
+            e["xout"] = (add(f"{name} xfer_out gather", src, P * N),
+                         add(f"{name} xfer_out scatter", dst, P * N, True))
+            for key, rounds in (("bcast", it.bcast_rounds),
+                                ("reduce", it.reduce_rounds),
+                                ("diag", it.diag_reduce_rounds)):
+                e[key] = [(add(f"{name} {key} src", [s for s, _ in rnd], P),
+                           add(f"{name} {key} dst", [d for _, d in rnd], P,
+                               True)) for rnd in rounds]
+        plan.append(e)
+    flat = up(np.concatenate(parts) if parts else np.zeros(0, np.int64))
+    cuts = np.cumsum([0] + [len(a) for a in parts])
+
+    def view(i):
+        return flat[cuts[i]:cuts[i + 1]]
+
+    iters = []
+    for e in plan:
+        for key in ("xin", "xout"):
+            if key in e:
+                e[key] = tuple(view(i) for i in e[key])
+        for key in ("bcast", "reduce", "diag"):
+            if key in e:
+                e[key] = [(view(s), view(d)) for s, d in e[key]]
+        iters.append(UnrolledIter(**e))
+    tabs = UnrolledTables(device=dev, P=P, N=N, iters=iters)
+    _count_bytes(tabs, [tabs, *iters,
+                        *[lv for lv in levels if lv is not None]])
+    return tabs
+
+
+def _tree_round(x, src, dst, add: bool) -> None:
+    """One tree round over the rank axis of ``x`` (``(B, P, …)``): the
+    senders' whole buffers land at the receivers, overwriting (a
+    broadcast) or added to what is there (a reduction: receiver + sender,
+    the JAX round's order)."""
+    moved = x.index_select(1, src)
+    if add:
+        moved = x.index_select(1, dst) + moved
+    x.index_copy_(1, dst, moved)
+
+
+def make_sweep_unrolled(prog: PSelInvProgram, tables: UnrolledTables):
+    """The pre-IR sweep — the paper's per-supernode algorithm, the port
+    of the JAX ``make_sweep_unrolled`` — over ``tables`` (from
+    :func:`upload_unrolled_tables`), all P ranks as the leading axis: for
+    each supernode K from the last, xfer-in builds the Û(K, ·) buffer
+    (one gather, transpose and scatter for all its rounds), the column
+    broadcast ships each sender's whole Û buffer round by round, one
+    masked GEMM runs in the hand-written block-GEMM kernel
+    (``ops.pselinv_round_gemm`` at nk=1: Z = P, one launch per
+    supernode with a non-empty struct), the row reduction adds each
+    sender's whole partial, then the column write, xfer-out and the
+    diagonal sum (as :func:`_diag_sum` computes it), its reduction and
+    write. Takes one matrix's ``(P, nbr, nbc, b, b)`` shards, as the JAX
+    sweep does, and returns its A⁻¹ shards; the kernels see a B=1 axis."""
+    if prog.iters is None:
+        raise ValueError("use build_program_unrolled()")
+    b, P, N = prog.b, tables.P, tables.N
+    nbr, nbc = prog.nbr, prog.nbc
+    shape = (P, nbr, nbc, b, b)
+
+    def sweep(Lh: torch.Tensor, Dinv: torch.Tensor) -> torch.Tensor:
+        Lh, Dinv = _values(Lh, Dinv, shape, tables.device, False)
+        lh_flat = Lh.reshape(1, P * N, b, b)
+        Dinv_f = Dinv.reshape(1, P, N, b, b)
+        ainv = Lh.new_zeros((1, P, N, b, b))
+        aflat = ainv.view(1, P * N, b, b)
+        Ainv = ainv.view(1, P, nbr, nbc, b, b)
+        for it in tables.iters:
+            lv = it.lv
+            if lv is None:
+                ainv[:, it.root, it.slot] = Dinv_f[:, it.root, it.slot]
+                continue
+            # (a) xfer-in: Û(K, I) = L̂(I, K)ᵀ at the owner of (K, I)
+            uh = Lh.new_zeros((1, P, nbc, b, b))
+            g, s = it.xin
+            uh.view(1, P * nbc, b, b).index_copy_(
+                1, s, lh_flat.index_select(1, g).transpose(-1, -2))
+            # (b) the column broadcast of the whole Û buffer
+            for src, dst in it.bcast:
+                _tree_round(uh, src, dst, add=False)
+            # (1) the local GEMM, (c) the row reduction of the partials
+            U = uh.view(1, P, 1, nbc, b, b)
+            part = pselinv_round_gemm(Ainv, U, lv.cm)
+            for src, dst in it.reduce:
+                _tree_round(part, src, dst, add=True)
+            _write_cols(Ainv, part, lv)
+            # (f) xfer-out: A⁻¹(K, J) = A⁻¹(J, K)ᵀ
+            g, s = it.xout
+            aflat.index_copy_(1, s, aflat.index_select(1, g).transpose(-1, -2))
+            # (2, 3) the diagonal
+            S = _diag_sum(Ainv, U, lv)
+            for src, dst in it.diag:
+                _tree_round(S, src, dst, add=True)
+            _write_diag(ainv, Dinv_f, S, lv)
+        return ainv.view(*shape)
+
+    return sweep
+
+
+def make_sweep_unrolled_ranked(prog: PSelInvProgram, rank: int,
+                               group=None, device="cuda"):
+    """The unrolled sweep as rank ``rank`` of a ``pr·pc``-process group
+    runs it, on its own ``(nbr, nbc, b, b)`` shards on ``device``. Each
+    round of the host schedule is one :func:`~..comm.p2p.ppermute` on
+    every rank, of exactly the payload the JAX round ships: one ``(b,
+    b)`` block in an xfer or diagonal round, the whole Û buffer in a
+    broadcast round, the whole partial in a reduction round (added at
+    the receiver). Owner-local moves copy; the local GEMM runs in the
+    hand-written kernel at Z=1 and the compute phases are
+    :func:`make_sweep_unrolled`'s, so on the CPU a rank's shard is bitwise
+    the single-process sweep's."""
+    import torch.distributed as dist
+
+    from .device import resolve_device
+
+    if prog.iters is None:
+        raise ValueError("use build_program_unrolled()")
+    if dist.get_rank(group) != rank or (
+            dist.get_world_size(group) != prog.pr * prog.pc):
+        raise ValueError(
+            f"rank {rank} of a {prog.pr}x{prog.pc} grid, but this process "
+            f"is rank {dist.get_rank(group)} of "
+            f"{dist.get_world_size(group)}")
+    dev = resolve_device(device)
+    b, pr, pc, nbr, nbc = prog.b, prog.pr, prog.pc, prog.nbr, prog.nbc
+    N = nbr * nbc
+    levels = _unrolled_levels(prog, np.array([rank]), _uploader(dev))
+
+    def reduce(x, rounds):
+        for rnd in rounds:
+            moved = ppermute(x, rnd, group)
+            if any(d == rank for _, d in rnd):
+                x = x + moved
+        return x
+
+    def xfer(kcol, local, rounds, get, out, slot, hole):
+        """Owner-local moves, then each round's one block a pair:
+        ``out[slot(i)] = get(i)ᵀ`` at the owner of the target."""
+        for i in local:
+            if (i % pr) * pc + kcol == rank:
+                out[slot(i)] = get(i).transpose(-1, -2)
+        for rnd in rounds:
+            blk = next((get(i) for s, _, i in rnd if s == rank), hole)
+            moved = ppermute(blk, [(s, d) for s, d, _ in rnd], group)
+            for _, d, i in rnd:
+                if d == rank:
+                    out[slot(i)] = moved.transpose(-1, -2)
+
+    def sweep(Lh: torch.Tensor, Dinv: torch.Tensor) -> torch.Tensor:
+        Lh, Dinv = _values(Lh[None], Dinv[None], (1, nbr, nbc, b, b), dev,
+                           False)
+        lh = Lh[0, 0]
+        Dinv_f = Dinv.reshape(1, 1, N, b, b)
+        ainv = Lh.new_zeros((1, 1, N, b, b))
+        Ainv = ainv.view(1, 1, nbr, nbc, b, b)
+        a = Ainv[0, 0]
+        hole = Lh.new_zeros((b, b))
+        for it, lv in zip(prog.iters, levels):
+            K = it.K
+            krow, kcol, kr, kc = K % pr, K % pc, K // pr, K // pc
+            if lv is None:
+                if rank == krow * pc + kcol:
+                    a[kr, kc] = Dinv[0, 0, kr, kc]
+                continue
+            uh = Lh.new_zeros((nbc, b, b))
+            xfer(kcol, it.xfer_in_local, it.xfer_in_rounds,
+                 lambda i: lh[i // pr, kc], uh, lambda i: i // pc, hole)
+            for rnd in it.bcast_rounds:
+                uh = ppermute(uh, rnd, group)
+            U = uh.view(1, 1, 1, nbc, b, b)
+            part = reduce(pselinv_round_gemm(Ainv, U, lv.cm),
+                          it.reduce_rounds)
+            _write_cols(Ainv, part, lv)
+            xfer(kcol, it.xfer_out_local, it.xfer_out_rounds,
+                 lambda j: a[j // pr, kc], a[kr], lambda j: j // pc, hole)
+            S = reduce(_diag_sum(Ainv, U, lv), it.diag_reduce_rounds)
+            _write_diag(ainv, Dinv_f, S, lv)
+        return a
+
+    return sweep
+
+
+# ---------------------------------------------------------------------------
 # host-side data preparation / gather
 # ---------------------------------------------------------------------------
 
@@ -1800,14 +2257,13 @@ def run_distributed(A, b: int, pr: int, pc: int,
 
     Unlike the JAX package's shim over its engine this entry point is
     not deprecated: the port's engine runs every rank in one process,
-    and this is its multi-process path. ``pipelined=False`` (the legacy
-    unrolled executor) over ranks is not ported. ``device="cuda"`` raises
-    on a rank that has no card; on a one-card machine every rank shares
-    ``cuda:0``."""
-    if not pipelined:
-        raise NotImplementedError(
-            "run_distributed(pipelined=False): the legacy unrolled "
-            "executor over rank processes is not ported (ROADMAP Queue 1)")
+    and this is its multi-process path. ``pipelined=False`` runs the
+    legacy unrolled sweep (:func:`build_program_unrolled`,
+    :func:`make_sweep_unrolled_ranked`: per supernode, every round of
+    the JAX schedule one point-to-point message of the JAX round's
+    payload) over the ranks, where the JAX package runs it on its mesh
+    in one process. ``device="cuda"`` raises on a rank that has no card;
+    on a one-card machine every rank shares ``cuda:0``."""
     import torch.distributed as dist
 
     from .device import resolve_device
@@ -1816,9 +2272,13 @@ def run_distributed(A, b: int, pr: int, pc: int,
     dev = resolve_device(device)
     rank = dist.get_rank(group)
     bs, nb = analyze_structure(A, b, pr, pc)
-    prog = build_program(bs, nb, b, pr, pc, kind=kind, overlap=overlap)
+    prog = (build_program(bs, nb, b, pr, pc, kind=kind, overlap=overlap)
+            if pipelined else build_program_unrolled(bs, nb, b, pr, pc,
+                                                     kind=kind))
     shard = _scatter_values(A, prog, group)
-    if overlap:
+    if not pipelined:
+        sweep = make_sweep_unrolled_ranked(prog, rank, group, dev)
+    elif overlap:
         sweep = make_sweep_overlapped_ranked(
             prog, rank_tables(upload_tables(prog, "cpu"), rank, dev), rank,
             group)

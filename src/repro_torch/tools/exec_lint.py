@@ -11,8 +11,14 @@ case lints on the CPU in seconds):
     PYTHONPATH=src python -m repro_torch.tools.exec_lint        # corpus
     PYTHONPATH=src python -m repro_torch.tools.exec_lint --grid 8x4 --nb 32
     PYTHONPATH=src python -m repro_torch.tools.exec_lint -v     # per case
+    PYTHONPATH=src python -m repro_torch.tools.exec_lint \
+        --baseline BENCH_pselinv_torch.json      # + the size lint
 
-Exits non-zero iff any case produces an ERROR-severity diagnostic.
+With ``--baseline`` the nb=16 4×2 stream sweep's dispatched ops are
+also held to the size baseline recorded there for that class
+(``exec_verify.load_size_baseline``, the newest card entry); a
+regression past ``SIZE_REGRESS_RATIO`` is a WARN. Exits non-zero iff
+any case produces an ERROR-severity diagnostic.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import time
 import scipy.sparse as sp_mod
 
 from ..core import sparse
-from ..core.exec_verify import lint_program
+from ..core.exec_verify import lint_program, load_size_baseline
 from ..core.plan import PlanOptions
 from ..core.pselinv_dist import build_program, pad_nb
 from ..core.symbolic import symbolic_factorize
@@ -45,7 +51,7 @@ EXECUTORS = [
 
 
 def lint_case(nx: int, ny: int, nb: int, pr: int, pc: int, *,
-              verbose: bool = False):
+              verbose: bool = False, baseline=None):
     """Lint every executor lowering of one (structure, grid) case.
     Returns (n_errors, n_warnings, n_programs)."""
     bs = symbolic_factorize(
@@ -55,7 +61,9 @@ def lint_case(nx: int, ny: int, nb: int, pr: int, pc: int, *,
     case = f"laplacian_2d({nx},{ny}) nb={nbp} grid {pr}x{pc}"
     for what, opts in EXECUTORS:
         prog = build_program(bs, nbp, 8, pr, pc, options=opts)
-        diags = lint_program(prog)
+        # the baseline is the nb=16 4x2 stream class's: hold that only
+        same = (nbp, pr, pc, what) == (16, 4, 2, "stream")
+        diags = lint_program(prog, baseline=baseline if same else None)
         errs = [d for d in diags if d.severity == "error"]
         warns = [d for d in diags if d.severity == "warn"]
         nerr += len(errs)
@@ -86,13 +94,21 @@ def main(argv=None) -> int:
                     help="supernode blocking for --grid (default 32)")
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="report clean programs too")
+    ap.add_argument("--baseline", default=None, metavar="PATH",
+                    help="hold the nb=16 4x2 stream sweep's dispatched "
+                         "ops to the size baseline in this bench history")
     args = ap.parse_args(argv)
+    baseline = None
+    if args.baseline:
+        baseline = load_size_baseline(args.baseline)
+        print(f"[exec-lint] size baseline from {args.baseline}: "
+              f"{baseline or 'none recorded on the card'}")
 
     cases = corpus(args.grid, args.nb)
     t0 = time.time()
     nerr = nwarn = nprog = 0
     for case in cases:
-        e, w, p = lint_case(*case, verbose=args.verbose)
+        e, w, p = lint_case(*case, verbose=args.verbose, baseline=baseline)
         nerr += e
         nwarn += w
         nprog += p

@@ -771,3 +771,32 @@ def test_ranked_level_serial_on_the_card(cuda_device):
     assert all(r["codes"] == [] for r in rows)
     assert sum(r["staged"] for r in rows) == 2 * eng.moved()[1]
     assert all(r["staged_notes"] > 0 for r in rows if r["staged"])
+
+
+@pytest.mark.parametrize("name", ["lap", "fem"])
+def test_unrolled_sweep_on_the_card(cuda_device, name):
+    """The legacy unrolled sweep on the card against its CPU run (f64,
+    within 1e-12·max|A⁻¹|), one block-GEMM launch a supernode with a
+    struct, every one on the DMMA variant."""
+    from repro_torch.core.pselinv_dist import (analyze_structure,
+                                               build_program_unrolled,
+                                               make_sweep_unrolled,
+                                               prepare_values,
+                                               upload_unrolled_tables)
+    A = _executor_cases()[name]
+    bs, nb = analyze_structure(A, 8, 4, 2)
+    prog = build_program_unrolled(bs, nb, 8, 4, 2)
+    Lh, Dinv = (torch.from_numpy(x) for x in
+                prepare_values(A, bs, nb, 8, 4, 2))
+    ref = make_sweep_unrolled(prog, upload_unrolled_tables(prog, "cpu"))(
+        Lh, Dinv)
+    sweep = make_sweep_unrolled(prog, upload_unrolled_tables(prog,
+                                                             cuda_device))
+    before = bg.launches
+    bg.plans.clear()
+    out = sweep(Lh.to(cuda_device), Dinv.to(cuda_device))
+    torch.cuda.synchronize()
+    assert bg.launches - before == sum(1 for it in prog.iters if it.C)
+    assert {k[0] for k in bg.plans} == {"dmma_f64"}
+    scale = ref.abs().max().item()
+    assert (out.cpu() - ref).abs().max().item() <= 1e-12 * scale

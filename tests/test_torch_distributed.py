@@ -17,7 +17,11 @@ at P=8 in one; on the CPU both sum each element in one order). The
 ranks' sent bytes must total ``executed_wire_bytes`` and
 ``engine.stats()["moved_bytes"]`` (overlapped), and
 ``expected_wire_blocks·b²·8`` (level-serial), and their send logs must
-hold the plan round by round (``exec_verify.lint_ranked``)."""
+hold the plan round by round (``exec_verify.lint_ranked``). The legacy
+unrolled sweep (``run_distributed(pipelined=False)``) runs in its own 8
+gloo processes on the Laplacian: each rank's result against the
+single-process unrolled sweep, its sent bytes against the bytes
+reckoned from the rounds."""
 import threading
 import warnings
 
@@ -311,14 +315,47 @@ def test_grid_and_input_errors():
     assert Lh.shape == Dinv.shape == (8, nb // 4, nb // 2, 8, 8)
 
 
-# the level-serial case (once id "kw0") runs now: the ranked level-serial
-# tests above replace it; the unrolled case keeps its id
+def _unrolled_rank(rank, kw):
+    """``run_distributed(**kw)`` on this rank: the full result and what
+    this rank sent."""
+    torch.set_num_threads(1)
+    p2p.LOG.clear()
+    out, prog = run_distributed(sparse.laplacian_2d(12, 8), b=8, pr=4, pc=2,
+                                dtype=torch.float64, device="cpu", **kw)
+    return dict(out=out, sent=p2p.LOG.sent(), rounds=p2p.LOG.rounds)
+
+
+# the level-serial case (once id "kw0") runs in the ranked level-serial
+# tests above; the unrolled case keeps its id, and since the unrolled
+# sweep runs over rank processes it is held to the single-process one
 @pytest.mark.parametrize("kw", [pytest.param(dict(pipelined=False),
                                              id="kw1")])
 def test_other_executors_over_ranks_are_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_distributed(sparse.laplacian_2d(12, 8), b=8, pr=4, pc=2,
-                        device="cpu", **kw)
+    from repro_torch.core.pselinv_dist import (analyze_structure,
+                                               build_program_unrolled,
+                                               make_sweep_unrolled,
+                                               prepare_values,
+                                               unrolled_moved,
+                                               upload_unrolled_tables)
+    rows = p2p.spawn(_unrolled_rank, 8, kw, timeout=300)
+    A = sparse.laplacian_2d(12, 8)
+    bs, nb = analyze_structure(A, 8, 4, 2)
+    prog = build_program_unrolled(bs, nb, 8, 4, 2)
+    Lh, Dinv = prepare_values(A, bs, nb, 8, 4, 2)
+    one = make_sweep_unrolled(prog, upload_unrolled_tables(prog, "cpu"))(
+        torch.from_numpy(Lh), torch.from_numpy(Dinv)).numpy()
+    scale = np.abs(one).max()
+    for row in rows:
+        if not np.array_equal(row["out"], one):
+            d = np.abs(row["out"] - one).max()
+            assert d <= TOL * scale, (
+                f"ranked unrolled shards differ from the single-process "
+                f"sweep by {d:.3e} (the diagonal einsum and the level GEMM "
+                "run at P=1 in a rank, at P=8 in one process)")
+    rounds, blocks = unrolled_moved(prog)
+    assert rounds == 72
+    assert {row["rounds"] for row in rows} == {rounds}
+    assert sum(row["sent"][1] for row in rows) == blocks * 8 * 8 * 8
 
 
 def test_ranked_sweep_needs_one_ranks_tables():
