@@ -22,7 +22,9 @@ on the card:
    (``torch.linalg.solve_triangular``); RMSNorm in f32/bf16 up to
    qwen3-32b's widths, one kernel a call (``F.rms_norm``); flash attention
    in f32/bf16, causal and not, up to qwen3-32b's (1, 4096, 64, 128)
-   (``F.scaled_dot_product_attention``);
+   (``F.scaled_dot_product_attention``); and both at the shapes phase 10
+   gives them (granite-3-2b's decode and prefill rows, qwen3-32b's
+   qk-norm rows, granite's (1, 2048, 32, 64) prefill attention);
 3. runs the main path — ``PSelInvEngine.analyze`` → ``prepare_values`` →
    the session's eager sweep on grid 4×2 — on the FEM-like (audikw_1
    stand-in) and DG-like (DG_PNF14000 stand-in) matrices at full size,
@@ -114,6 +116,24 @@ on the card:
    ``BENCH_pselinv_torch.json`` (``exec_verify.load_size_baseline``, its
    newest card entry) and lints the nb=16 4×2 f32 stream class on the
    card against it: no diagnostic;
+10. runs the LM stack's serving path (``repro_torch.models``,
+   ``runtime.ServeEngine``, ``launch.serve``) with RMSNorm and prefill
+   attention on the hand-written kernels: (a) granite-3-2b at its full
+   published size (40 layers, 2.53 B params, the port's seeded f32 init
+   cast once to bf16) — a (1, 2048) prefill (40 flash launches on the tensor
+   cores), 16 teacher-forced decode steps held against the prefill's
+   logits, 81 RMSNorm launches a step, and the same through the plain
+   versions held against the kernel route; (b) 16 requests served by
+   ``ServeEngine`` (8 slots, a 2048-token cache, 32 new tokens each):
+   every request complete, decode-step p50/p95, tokens/s, a traced
+   step's busy share (only from a trace that holds all 81 of its RMSNorm
+   kernels), peak memory; and ``python -m
+   repro_torch.launch.serve --arch granite-3-2b --scale full`` exiting 0;
+   (c) qwen3-32b at full width with its depth cut to 2 layers (qk-norm
+   on 128-wide rows, head_dim 128, untied unembedding) at S = 4096, the
+   checks of (a) with 9 RMSNorm launches a step (the RMSNorm and flash
+   kernels are held against their plain versions at the shapes this path
+   gives them in phase 2b);
 9. writes every measured row to ``build/chip_smoke.json`` and prints the
    kernels' JSON line, the total wall time, the card line and, last, the
    result.
@@ -125,6 +145,7 @@ result. Numbers from this script are the only ones quoted for the port.
 """
 from __future__ import annotations
 
+import collections
 import json
 import re
 import statistics
@@ -596,18 +617,26 @@ def rmsnorm_symbol(dtype_name, p, scale_name):
     return f"rmsnorm_kernel<{x}, {p.width}, {p.ppt}, {sc}>"
 
 
-def kernels_per_call(fn):
-    """The kernels the card runs for one ``fn()`` (torch.profiler)."""
+def kernels_per_call(fn, tries=3):
+    """The kernels the card runs for one ``fn()`` (torch.profiler). The
+    profiler can lose the kernels launched through ctypes: a window that
+    holds no kernel is logged and traced again, up to ``tries`` windows;
+    a window with any kernel in it is returned as it is."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for i in range(tries):
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ran = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ran:
+            return ran
+        log(f"  profiler window {i + 1} of {tries} held no kernel")
+    return ran
 
 
 def rmsnorm_checks(dev, shapes=RMS_SHAPES):
@@ -894,46 +923,66 @@ def eager_solve(eng, vals, dtype):
     return eng.sweep(Lh.ndim == 6)(Lh, Dinv)
 
 
-def profile_solve(solve):
-    """Device time of one f64 solve (``solve()``) by kernel class
-    (torch.profiler), against the solve's wall on CUDA events taken
-    inside the traced window: the busy share and where it goes, and the
-    block-GEMM kernels the card ran."""
+def trace_device(fn, classify, warm=0):
+    """One ``fn()`` traced (torch.profiler), its wall on CUDA events taken
+    inside the traced window; with ``warm``, that many calls of ``fn``
+    before it run under the profiler's warm-up (traced, discarded).
+    ``classify`` maps a kernel's name to its class. Returns the wall
+    (µs), device time (µs) and kernels recorded by class, and the kernels
+    as (µs, count, name)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warm, active=1)
+                 if warm else None) as p:
+        for _ in range(warm):
+            fn()
+            torch.cuda.synchronize()
+            p.step()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        solve()
+        fn()
         e.record()
         torch.cuda.synchronize()
     wall_us = s.elapsed_time(e) * 1e3
-    classes = {}
-    kernels = []
-    gemm_calls = 0
+    classes, counts, kernels = {}, {}, []
     for ev in p.key_averages():
         t = getattr(ev, "self_device_time_total", 0) or 0
-        if t <= 0 or ev.key.startswith("aten::"):
+        # the schedule's step annotation carries the step's span
+        if t <= 0 or ev.key.startswith(("aten::", "ProfilerStep")):
             continue
-        k = ev.key
-        if "block_gemm_kernel" in k:
-            c = "block_gemm (hand-written)"
-            gemm_calls += ev.count
-        elif any(x in k for x in ("gemm", "Gemm", "cutlass", "xmma",
-                                  "sm90", "cublas")):
-            c = "cuBLAS (scomp einsum)"
-        elif "ndex" in k or "catter" in k or "ather" in k:
-            c = "gather / scatter / index_add"
-        elif "emcpy" in k or "emset" in k:
-            c = "memcpy / memset"
-        else:
-            c = "elementwise (where, sub, transpose copies, zeros)"
+        c = classify(ev.key)
         classes[c] = classes.get(c, 0.0) + t
-        kernels.append((t, ev.count, k[:90]))
+        counts[c] = counts.get(c, 0) + ev.count
+        kernels.append((t, ev.count, ev.key[:90]))
+    return wall_us, classes, counts, kernels
+
+
+_CUBLAS = ("gemm", "Gemm", "cutlass", "xmma", "sm90", "nvjet", "cublas")
+_GEMM_CLASS = "block_gemm (hand-written)"
+
+
+def _solve_class(k):
+    if "block_gemm_kernel" in k:
+        return _GEMM_CLASS
+    if any(x in k for x in _CUBLAS):
+        return "cuBLAS (scomp einsum)"
+    if "ndex" in k or "catter" in k or "ather" in k:
+        return "gather / scatter / index_add"
+    if "emcpy" in k or "emset" in k:
+        return "memcpy / memset"
+    return "elementwise (where, sub, transpose copies, zeros)"
+
+
+def profile_solve(solve):
+    """Device time of one f64 solve (``solve()``) by kernel class
+    (:func:`trace_device`), against the solve's wall: the busy share and
+    where it goes, and the block-GEMM kernels the card ran."""
+    wall_us, classes, counts, kernels = trace_device(solve, _solve_class)
+    gemm_calls = counts.get(_GEMM_CLASS, 0)
     busy = sum(classes.values())
     if busy <= 0:
         log("  profile: the profiler recorded no device time — breakdown "
@@ -2751,6 +2800,359 @@ def bench_path(dev, only="kernels,selinv,treecomm", timeout=600):
                           dispatched_ops=lint.info["dispatched_ops"]))
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the LM serving path — dense decoders at full width
+# ---------------------------------------------------------------------------
+
+#: logits are held to rtol 5e-2 and atol 5e-2 · max(1, max|ref|), the
+#: padded vocab columns left out (as ``tests/test_torch_models.py``)
+LM_TOL = 5e-2
+#: teacher-forced decode steps held against the prefill's logits
+LM_STEPS = 16
+#: phase 10b: ``ServeEngine`` at granite-3-2b's full size
+LM_SERVE = dict(slots=8, max_seq=2048, requests=16, max_new=32)
+#: the kernels at the shapes the LM path gives them: granite's decode
+#: rows (8 slots, and 1 teacher-forced) and prefill rows, qwen3-32b's
+#: d_model row and its qk-norm rows (q: 64 heads, k: 8 heads a token)
+LM_RMS_SHAPES = [(8, 2048), (1, 2048), (2048, 2048), (1, 5120), (64, 128),
+                 (8, 128)]
+LM_FLASH_SHAPES = [((1, 2048, 32, 64), ("bfloat16",))]
+
+
+def lm_close(out, ref, what):
+    """max|Δ| of ``out`` against ``ref`` (logits over the real vocab), and
+    the share of rtol 5e-2 + atol 5e-2 · max(1, max|ref|) it uses;
+    raises past it or on a non-finite value."""
+    import torch
+    out, ref = out.float(), ref.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"LM {what}: non-finite logits")
+    atol = LM_TOL * max(1.0, ref.abs().max().item())
+    delta = (out - ref).abs()
+    used = (delta / (atol + LM_TOL * ref.abs())).max().item()
+    err = delta.max().item()
+    if not used <= 1.0:
+        raise AssertionError(f"LM {what}: max|Δ| {err:.3e} uses {used:.2f}×"
+                             f" the tolerance (atol {atol:.3e})")
+    return err, used
+
+
+_RMS_CLASS = "rmsnorm (hand-written)"
+
+
+def _lm_class(k):
+    if "rmsnorm" in k:
+        return _RMS_CLASS
+    if "flash_attention" in k:
+        return "flash_attention (hand-written)"
+    if any(x in k for x in _CUBLAS):
+        return "cuBLAS (linears, decode einsums)"
+    return "elementwise / index / softmax"
+
+
+def lm_trace(fn, rms_launches, tries=3):
+    """``fn()`` traced after one warm-up call (:func:`trace_device`):
+    device time by kernel class against its wall. A trace counts only
+    when it holds the ``rms_launches`` RMSNorm kernels ``fn`` launched
+    (the profiler can lose the kernels launched through ctypes) and no
+    more device time than its wall (one stream). Up to ``tries`` traces
+    are taken, two calls of ``fn`` each; with none complete the busy
+    share reads not measured."""
+    recorded = []
+    for _ in range(tries):
+        wall_us, classes, counts, _ = trace_device(fn, _lm_class, warm=1)
+        busy = sum(classes.values())
+        recorded.append(counts.get(_RMS_CLASS, 0))
+        if 0 < busy <= wall_us and recorded[-1] == rms_launches:
+            return dict(wall_us=wall_us, busy_us=busy,
+                        busy_share=busy / wall_us,
+                        kernels=sum(counts.values()),
+                        rmsnorm_recorded=recorded, classes_us=classes)
+        log(f"  trace: {recorded[-1]} of {rms_launches} RMSNorm kernels, "
+            f"{busy:.0f} µs of device time in a {wall_us:.0f} µs wall")
+    log("  trace: no complete trace — busy share not measured")
+    return dict(wall_us=wall_us, busy_us=None, busy_share=None,
+                rmsnorm_recorded=recorded)
+
+
+def _lm_model(dev, arch, n_layers=None):
+    """The config (depth cut to ``n_layers`` when given), its API and
+    the serving model from the port's seeded init on the card."""
+    import dataclasses
+
+    from repro_torch.config import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config(arch)
+    reduced = None
+    if n_layers is not None:
+        reduced = f"n_layers {cfg.n_layers}→{n_layers}"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params = api.serving_params(api.init(0, device=dev))
+    _sync(dev)
+    _empty_cache(dev)           # the f32 init is gone: peaks start here
+    return cfg, api, params, reduced, time.perf_counter() - t0
+
+
+def lm_model_path(dev, arch, S, n_layers=None, steps=LM_STEPS):
+    """Phase 10a / 10c: the full-width model on the card — a (1, S)
+    prefill through ``lm_forward`` and ``ModelAPI.prefill`` (one flash
+    launch a layer, RMSNorm at every norm), ``steps`` teacher-forced
+    decode steps of the same tokens held against the prefill's
+    logits, and the same prefill and steps through the plain versions
+    (``layers.plain_kernels``) held against the kernel route. Counts are
+    zeroed right before each run and read right after it."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.models import layers as ml
+    from repro_torch.models import transformer as tfm
+
+    _empty_cache(dev)
+    cfg, api, params, reduced, init_s = _lm_model(dev, arch, n_layers)
+    L, V = cfg.n_layers, cfg.vocab
+    per_step = (4 if cfg.qk_norm else 2) * L + 1
+    n_params = sum(w.numel() for w in params.parameters())
+    g = torch.Generator(device=dev).manual_seed(10)
+    toks = torch.randint(0, V, (1, S), device=dev, generator=g)
+
+    def prefill():
+        return tfm.lm_forward(params, cfg, toks)[0]
+
+    def decode(counts=None):
+        cache = api.init_cache(1, S, device=dev)
+        out = []
+        for t in range(steps):
+            before = rk.launches
+            lg, cache = api.decode_step(params, toks[:, t],
+                                        torch.full((1,), t, device=dev),
+                                        cache)
+            if counts is not None:
+                counts.append(rk.launches - before)
+            out.append(lg)
+        _sync(dev)
+        return torch.stack(out, 1)
+
+    launches = dict(rmsnorm=0, flash_attention=0)
+    rms_variants = collections.Counter()
+    zero_counts()
+    full = prefill()
+    _sync(dev)
+    pre = read_counts()
+    pre_variants = dict(fa.plans)
+    rms_variants.update(rk.plans)
+    zero_counts()
+    last = api.prefill(params, {"tokens": toks})
+    _sync(dev)
+    entry = read_counts()
+    rms_variants.update(rk.plans)
+    zero_counts()
+    step_counts = []
+    dec = decode(step_counts)
+    dcounts = read_counts()
+    rms_variants.update(rk.plans)
+    for c in (pre, entry, dcounts):
+        for k in launches:
+            launches[k] += c[k]
+    want_pre = dict(block_gemm=0, trsm=0, rmsnorm=per_step,
+                    flash_attention=L)
+    if pre != want_pre or entry != want_pre:
+        raise AssertionError(f"{arch} prefill launches {pre} / {entry}, "
+                             f"want {want_pre}")
+    if set(pre_variants) - {"hmma_cpasync", "hmma_guarded"}:
+        raise AssertionError(f"{arch} prefill flash off the tensor cores: "
+                             f"{pre_variants}")
+    if step_counts != [per_step] * steps or dcounts["flash_attention"]:
+        raise AssertionError(f"{arch} decode RMSNorm launches a step "
+                             f"{step_counts}, want {per_step}; {dcounts}")
+    if not torch.equal(last, full[:, -1:]):
+        raise AssertionError(f"{arch}: ModelAPI.prefill differs from the "
+                             "forward's last position")
+    err_pd, used_pd = lm_close(dec[0, :, :V], full[0, :steps, :V],
+                               f"{arch} decode vs prefill")
+    with ml.plain_kernels():
+        zero_counts()
+        pfull = prefill()
+        pdec = decode()
+        plain_counts = read_counts()
+    if any(plain_counts.values()):
+        raise AssertionError(f"{arch}: the plain route launched kernels: "
+                             f"{plain_counts}")
+    err_pp, used_pp = lm_close(full[..., :V], pfull[..., :V],
+                               f"{arch} prefill, kernels vs plain")
+    err_dp, used_dp = lm_close(dec[..., :V], pdec[..., :V],
+                               f"{arch} decode, kernels vs plain")
+    top = full[0, -1, :V].float().topk(2).values.tolist()
+    del pfull, pdec, full, dec, last
+    _empty_cache(dev)
+    prefill_ms = timed_ms(prefill, reps=3)
+    with ml.plain_kernels():
+        plain_prefill_ms = timed_ms(prefill, reps=3)
+    cache = api.init_cache(1, S, device=dev)
+    tok0, pos0 = toks[:, 0], torch.zeros(1, dtype=torch.long, device=dev)
+    step_ms = timed_ms(lambda: api.decode_step(params, tok0, pos0, cache),
+                       reps=10, warm=2)
+    peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(w.numel() * w.element_size()
+                       for w in params.parameters())
+    row = dict(arch=arch, reduced=reduced, S=S, params=n_params,
+               weight_bytes=weight_bytes, init_s=init_s,
+               launches_prefill=pre, launches_per_step=per_step,
+               prefill_variants=pre_variants, prefill_ms=prefill_ms,
+               plain_prefill_ms=plain_prefill_ms, decode_step_ms=step_ms,
+               decode_vs_prefill=dict(max_abs_err=err_pd, tol_used=used_pd),
+               plain_prefill=dict(max_abs_err=err_pp, tol_used=used_pp),
+               plain_decode=dict(max_abs_err=err_dp, tol_used=used_dp),
+               last_top2=top, peak_bytes=peak, launches=launches,
+               rmsnorm_variants=dict(rms_variants))
+    size = "full size" if reduced is None else f"reduced: {reduced}"
+    log(f"LM {arch} ({size}, {n_params / 1e9:.3f} B params, "
+        f"{weight_bytes / 1e9:.2f} GB bf16, init {init_s:.1f} s): prefill (1, {S}) {prefill_ms:.1f} ms "
+        f"(plain route {plain_prefill_ms:.1f} ms), launches {pre} on "
+        f"{pre_variants}; decode step {step_ms:.2f} ms, {per_step} RMSNorm "
+        f"launches a step x {steps}; decode vs prefill max|Δ| {err_pd:.3e} "
+        f"({used_pd:.3f} of the tolerance), kernels vs plain: prefill "
+        f"{err_pp:.3e} ({used_pp:.3f}), decode {err_dp:.3e} ({used_dp:.3f});"
+        f" peak {peak / 2**30:.2f} GiB")
+    del params, cache
+    _empty_cache(dev)
+    return row
+
+
+def _empty_cache(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def lm_serve_path(dev, arch="granite-3-2b", serve=LM_SERVE,
+                  cli_requests=4, timeout=300):
+    """Phase 10b: ``ServeEngine`` on the full-size model — ``requests``
+    requests with prompts of 2–8 tokens (numpy, seed 0), continuous
+    batching over ``slots`` slots of a ``max_seq`` cache; one step
+    traced for its busy share (:func:`lm_trace`; the steps run under the
+    profiler are left out of the step times and the tokens/s); then ``python -m repro_torch.launch.serve
+    --arch <arch> --scale full --requests <cli_requests>`` as a
+    subprocess, which must exit 0 with every request completed."""
+    import os
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.runtime import Request, ServeEngine
+
+    _empty_cache(dev)
+    cfg, api, params, _, _ = _lm_model(dev, arch)
+    per_step = (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
+    eng = ServeEngine(api, params, batch_slots=serve["slots"],
+                      max_seq=serve["max_seq"])
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(
+                        1, cfg.vocab, rng.integers(2, 9)).tolist(),
+                    max_new=serve["max_new"])
+            for i in range(serve["requests"])]
+    for r in reqs:
+        eng.submit(r)
+
+    def made():
+        return sum(len(r.out) for r in reqs)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        eng.step()
+    t1 = time.perf_counter()
+    traced_tok, i0 = made(), len(eng.step_s)
+    trace = lm_trace(eng.step, per_step)
+    traced_tok, i1 = made() - traced_tok, len(eng.step_s)
+    t2 = time.perf_counter()
+    eng.run()
+    _sync(dev)
+    wall = (time.perf_counter() - t2) + (t1 - t0)
+    counts = read_counts()
+    rms_variants = dict(rk.plans)
+    steps = len(eng.step_s)
+    untraced = eng.step_s[:i0] + eng.step_s[i1:]
+    if counts["rmsnorm"] != per_step * steps or counts["flash_attention"]:
+        raise AssertionError(f"serve: launches {counts} over {steps} steps, "
+                             f"want {per_step} RMSNorm a step")
+    for r in reqs:
+        if not (r.done and len(r.out) == serve["max_new"]
+                and all(0 <= t < cfg.vocab for t in r.out)):
+            raise AssertionError(f"serve: request {r.rid} incomplete or "
+                                 f"out of vocab: {r.out}")
+    n_tok = made()
+    rate = (n_tok - traced_tok) / wall      # the traced step left out
+    ms = sorted(1e3 * t for t in untraced)
+    p50 = statistics.median(ms)
+    p95 = ms[min(len(ms) - 1, int(round(0.95 * (len(ms) - 1))))]
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    res = dict(arch=arch, **serve, completed=sum(r.done for r in reqs),
+               steps=steps, tokens=n_tok, traced_step_tokens=traced_tok,
+               wall_s=wall, tok_per_s=rate,
+               step_ms_p50=p50, step_ms_p95=p95, trace=trace,
+               peak_bytes=peak, launches=counts, launches_per_step=per_step,
+               rmsnorm_variants=rms_variants)
+    share = trace.get("busy_share")
+    log(f"LM serve {arch} full size: {res['completed']}/{len(reqs)} "
+        f"requests, {n_tok} tokens in {steps} steps; {n_tok - traced_tok} "
+        f"of them in {wall:.2f} s (host clock) outside the traced step: "
+        f"{rate:.1f} tokens/s; "
+        f"{i1 - i0} steps under the profiler; "
+        f"decode step p50 {p50:.2f} ms, p95 {p95:.2f} ms; traced step "
+        f"busy {'not measured' if share is None else f'{100 * share:.1f} %'}"
+        f" ({trace.get('kernels')} kernels, "
+        + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in
+                    sorted((trace.get("classes_us") or {}).items(),
+                           key=lambda x: -x[1]))
+        + f"); peak {peak / 2**30:.2f} GiB; launches {counts}")
+    del eng, params
+    _empty_cache(dev)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--scale", "full", "--requests", str(cli_requests), "--device",
+         dev.type], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=timeout)
+    cli_s = time.perf_counter() - t0
+    for line in r.stdout.splitlines()[:4]:
+        log(f"  launch.serve: {line}")
+    want = f"completed {cli_requests}/{cli_requests} requests"
+    if r.returncode or want not in r.stdout:
+        raise AssertionError(f"launch.serve exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    log(f"  launch.serve --scale full --requests {cli_requests}: exit 0 in "
+        f"{cli_s:.1f} s (host clock, process start included)")
+    res["cli_s"] = cli_s
+    return res
+
+
+def lm_path(dev):
+    """Phase 10: (a) granite-3-2b at full size, (b) served through
+    ``ServeEngine`` and the launcher, (c) qwen3-32b at full width with
+    its depth cut to 2 layers. The RMSNorm and flash kernels are held
+    against their plain versions at the shapes this path gives them in
+    phase 2b (:data:`LM_RMS_SHAPES`, :data:`LM_FLASH_SHAPES`): late in the
+    script the profiler traced no device time for the hand-written
+    kernels (PR 20), and those rows need it."""
+    t0 = time.perf_counter()
+    granite = lm_model_path(dev, "granite-3-2b", 2048)
+    serve = lm_serve_path(dev)
+    qwen = lm_model_path(dev, "qwen3-32b", 4096, n_layers=2)
+    launches = {k: granite["launches"][k] + qwen["launches"][k]
+                + serve["launches"][k] for k in ("rmsnorm",
+                                                 "flash_attention")}
+    wall = time.perf_counter() - t0
+    log(f"phase 10 (LM serving path): {wall:.1f} s, main-path launches "
+        f"{launches}")
+    return dict(granite=granite, serve=serve, qwen3=qwen,
+                launches=launches, wall_s=wall)
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -2791,6 +3193,10 @@ def main() -> int:
 
     rows = kernel_checks(dev)
     new_rows = trsm_checks(dev) + rmsnorm_checks(dev) + flash_checks(dev)
+    # phase 10's kernels at the LM path's shapes, checked while the
+    # profiler still traces them (see lm_path)
+    lm_rows = rmsnorm_checks(dev, LM_RMS_SHAPES) + flash_checks(
+        dev, LM_FLASH_SHAPES)
     # phase 3, then 3b (the other executors) and 3d (each executor's
     # solve as a CUDA-graph replay) on each setting's prepared values, 3c
     # (the per-round replay) and 5a (the server) on the FEM setting
@@ -2821,7 +3227,8 @@ def main() -> int:
     batched_path(dev)
     ops = ops_path(dev)
     bench = bench_path(dev)
-    for r in rows + new_rows:    # ptxas's report of the instance each ran
+    lm = lm_path(dev)
+    for r in rows + new_rows + lm_rows:  # ptxas's report of each instance
         if "symbol" in r:
             lib = next(n for n in KERNELS
                        if r["symbol"].startswith(n.split("_")[0]))
@@ -2848,8 +3255,13 @@ def main() -> int:
                    for s_ in settings}},
                 "trsm": {"serial": serial["backends"]["cuda"]["variants"],
                          "ops": ops["variants"]["trsm"]},
-                "rmsnorm": ops["variants"]["rmsnorm"],
-                "flash_attention": ops["variants"]["flash_attention"]}
+                "rmsnorm": {"ops": ops["variants"]["rmsnorm"],
+                            **{f"{k} LM": lm[k]["rmsnorm_variants"]
+                               for k in ("granite", "serve", "qwen3")}},
+                "flash_attention": {
+                    "ops": ops["variants"]["flash_attention"],
+                    **{f"{m['arch']} prefill": m["prefill_variants"]
+                       for m in (lm["granite"], lm["qwen3"])}}}
     launches = {
         "block_gemm": sum(s_["launches"] for s_ in settings)
         + sum(r["launches"] for s_ in settings
@@ -2864,8 +3276,9 @@ def main() -> int:
         + ops["launches"]["block_gemm"],
         "trsm": serial["backends"]["cuda"]["launches"]["trsm"]
         + ops["launches"]["trsm"],
-        "rmsnorm": ops["launches"]["rmsnorm"],
-        "flash_attention": ops["launches"]["flash_attention"],
+        "rmsnorm": ops["launches"]["rmsnorm"] + lm["launches"]["rmsnorm"],
+        "flash_attention": ops["launches"]["flash_attention"]
+        + lm["launches"]["flash_attention"],
     }
     replaces = {"block_gemm": "src/repro/kernels/block_gemm.py:43",
                 "trsm": "src/repro/kernels/trsm.py:37",
@@ -2906,7 +3319,8 @@ def main() -> int:
          "wall_s": wall_s, "kernel_rows": rows, "new_kernel_rows": new_rows,
          "main_path": settings, "lint_negative": lint_neg,
          "serial": serial, "serve": serve,
-         "ops_path": ops, "bench": bench,
+         "ops_path": ops, "bench": bench, "lm": lm,
+         "lm_kernel_rows": lm_rows,
          "sass": sass, "ptxas": ptxas, "kernels": kernels}, indent=1,
         default=str))
     log(f"total wall {wall_s:.1f} s (host clock, build included)")

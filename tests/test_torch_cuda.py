@@ -8,12 +8,16 @@ server on them against the eager sweep, and rank processes sharing the
 card: a gloo ``ppermute`` of a CUDA tensor (staged through pinned host
 memory) and a ranked ``run_distributed``, overlapped and level-serial,
 against the single-process solve, with the level-serial send logs held
-to the plan (``lint_ranked``); and ``lint_compiled`` of every executor
-with its captured graph.
+to the plan (``lint_ranked``); ``lint_compiled`` of every executor
+with its captured graph; and the LM serving path at granite-3-2b's full
+width (2 layers): prefill against teacher-forced decode, the kernel
+route against the plain route, and the launches of each.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
-one; the file imports neither JAX nor the JAX package, so it runs on a
-machine that has only the port's dependencies:
+one, save the check that ``ModelAPI.init(device="cuda")`` raises on a
+host without one (it skips where a card is present); the file imports
+neither JAX nor the JAX package, so it runs on a machine that has only
+the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -800,3 +804,99 @@ def test_unrolled_sweep_on_the_card(cuda_device, name):
     assert {k[0] for k in bg.plans} == {"dmma_f64"}
     scale = ref.abs().max().item()
     assert (out.cpu() - ref).abs().max().item() <= 1e-12 * scale
+
+
+# ---- the LM serving path: granite-3-2b at full width, 2 layers ------------
+
+def _granite2(dev):
+    """granite-3-2b at its published width with the depth cut to 2, the
+    serving model (bf16) from the port's seeded init on ``dev``."""
+    import dataclasses
+
+    from repro_torch.config import get_config
+    from repro_torch.models import get_model
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=2)
+    api = get_model(cfg)
+    return cfg, api, api.serving_params(api.init(0, device=dev))
+
+
+def _lm_close(out, ref, vocab):
+    """rtol 5e-2 and atol 5e-2 · max(1, max|ref|) over the real vocab
+    (as ``tests/test_torch_models.py``)."""
+    out, ref = out[..., :vocab].float(), ref[..., :vocab].float()
+    atol = 5e-2 * max(1.0, ref.abs().max().item())
+    return bool(torch.isfinite(out).all()) and torch.allclose(
+        out, ref, rtol=5e-2, atol=atol)
+
+
+def _lm_run(api, cfg, params, toks, steps):
+    from repro_torch.models.transformer import lm_forward
+    dev = toks.device
+    full, _ = lm_forward(params, cfg, toks)
+    cache = api.init_cache(toks.shape[0], toks.shape[1], device=dev)
+    dec = []
+    for t in range(steps):
+        lg, cache = api.decode_step(params, toks[:, t],
+                                    torch.full((toks.shape[0],), t,
+                                               device=dev), cache)
+        dec.append(lg)
+    torch.cuda.synchronize()
+    return full, torch.stack(dec, 1)
+
+
+def _lm_tokens(cfg, dev, B=2, S=256):
+    g = torch.Generator(device=dev).manual_seed(11)
+    return torch.randint(0, cfg.vocab, (B, S), device=dev, generator=g)
+
+
+def test_lm_prefill_matches_teacher_forced_decode(cuda_device):
+    cfg, api, params = _granite2(cuda_device)
+    toks = _lm_tokens(cfg, cuda_device)
+    full, dec = _lm_run(api, cfg, params, toks, 12)
+    assert full.shape == (2, 256, cfg.vocab_padded)
+    assert _lm_close(dec, full[:, :12], cfg.vocab)
+    assert int(full.argmax(-1).max()) < cfg.vocab
+
+
+def test_lm_kernel_route_matches_plain_route(cuda_device):
+    from repro_torch.models import layers as ml
+    cfg, api, params = _granite2(cuda_device)
+    toks = _lm_tokens(cfg, cuda_device)
+    full, dec = _lm_run(api, cfg, params, toks, 8)
+    before = (rk.launches, fa.launches)
+    with ml.plain_kernels():
+        pfull, pdec = _lm_run(api, cfg, params, toks, 8)
+    assert (rk.launches, fa.launches) == before    # no kernel launched
+    assert not ml.plain_route()
+    assert _lm_close(full, pfull, cfg.vocab)
+    assert _lm_close(dec, pdec, cfg.vocab)
+
+
+def test_lm_launch_counts(cuda_device):
+    """L flash launches a prefill (on the tensor cores) and 2·L+1
+    RMSNorm launches a prefill and a decode step."""
+    cfg, api, params = _granite2(cuda_device)
+    L = cfg.n_layers
+    toks = _lm_tokens(cfg, cuda_device, B=1, S=2048)
+    rk.launches = fa.launches = 0
+    fa.plans.clear()
+    last = api.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert (fa.launches, rk.launches) == (L, 2 * L + 1)
+    assert set(fa.plans) <= {"hmma_cpasync", "hmma_guarded"}
+    assert last.shape == (1, 1, cfg.vocab_padded)
+    cache = api.init_cache(8, 2048, device=cuda_device)
+    rk.launches = fa.launches = 0
+    api.decode_step(params, toks[0, :8], torch.arange(8), cache)
+    torch.cuda.synchronize()
+    assert (fa.launches, rk.launches) == (0, 2 * L + 1)
+
+
+def test_model_init_on_the_card_raises_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.config import get_config, reduced_config
+    from repro_torch.models import get_model
+    api = get_model(reduced_config(get_config("granite-3-2b")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.init(0, device="cuda")
