@@ -1,13 +1,21 @@
 """GQA attention — the port of ``repro/models/attention.py``: the
 hand-written flash kernel for prefill, plain torch ops for decode.
 
-Prefill (:func:`attention`) repeats the KV heads up to H (head h reads
-KV head h // G: ``repeat_interleave``, as ``jnp.repeat``) and runs the
-causal flash kernel (``kernels.ops.flash_attention``) with Sq = Skv, in
-place of the JAX package's two-level ``lax.scan`` (``_flash``). The
-kernel applies ``hd**-0.5`` to the f32 scores; the JAX ``_flash`` scales
-q in bf16 before the product — one of the roundings the tests' tolerance
-covers.
+Prefill and the encoder (:func:`attention`) repeat the KV heads up to H
+(head h reads KV head h // G: ``repeat_interleave``, as ``jnp.repeat``)
+and run the flash kernel (``kernels.ops.flash_attention``, causal or
+not) with Sq = Skv, in place of the JAX package's two-level ``lax.scan``
+(``_flash``). The kernel applies ``hd**-0.5`` to the f32 scores; the JAX
+``_flash`` scales q in bf16 before the product — one of the roundings the
+tests' tolerance covers.
+
+Cross-attention (``attention(kv_override=(k, v))``, the enc-dec
+decoder) has Sq ≠ Skv, which the kernel, like the TPU kernel, does not
+take: it runs as plain torch ops (:func:`_cross`) with the JAX
+``_flash`` numerics — q scaled in bf16, bf16 scores taken to f32, the
+probabilities cast to bf16 before the PV product — never causal. Only q
+is projected (JAX projects k and v too and discards them); no RoPE or
+k-norm touches the given K/V.
 
 Decode (:func:`decode_attention`) attends one new token against the KV
 cache with einsum and softmax, as the JAX package does outside any
@@ -75,15 +83,44 @@ def _flash(q, k, v, causal: bool):
     return kops.flash_attention(q, k, v, causal=causal)
 
 
+def _project_q(p: Attention, cfg, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    B, S, _ = x.shape
+    q = linear(p.wq, x).reshape(B, S, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p.qnorm, q, cfg.norm_eps)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def _cross(q, k, v):
+    """Non-causal attention of q (B,Sq,H,hd) over k/v (B,Skv,KV,hd) in
+    plain torch ops, with the JAX ``_flash`` roundings (one kv chunk): q
+    scaled in bf16 and bf16 scores. Not ``kernels.ref.flash_attention_ref``,
+    which is the flash kernel's own numerics (f32 scores, scaled after the
+    product, KV heads already repeated) that the kernel is held to."""
+    H, KVh, hd = q.shape[2], k.shape[2], q.shape[3]
+    if KVh != H:
+        k = k.repeat_interleave(H // KVh, dim=2)
+        v = v.repeat_interleave(H // KVh, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k).to(torch.float32)
+    s = torch.exp(s - s.amax(-1, keepdim=True))
+    l = s.sum(-1)
+    acc = torch.einsum("bhqk,bkhd->bqhd", s.to(q.dtype), v).to(torch.float32)
+    out = acc / torch.clamp(l.transpose(1, 2)[..., None], min=1e-30)
+    return out.to(q.dtype)
+
+
 def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
               causal: bool = True, kv_override=None) -> torch.Tensor:
-    """Full-sequence attention (prefill)."""
-    if kv_override is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_override) comes with the enc-dec slice "
-            "(ROADMAP Queue 1, item 4)")
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _flash(q, k, v, causal)
+    """Full-sequence attention (prefill, encoder); with ``kv_override =
+    (k, v)`` cross-attention over them, never causal."""
+    if kv_override is not None:                 # cross-attention
+        out = _cross(_project_q(p, cfg, x, positions), *kv_override)
+    else:
+        q, k, v = _project_qkv(p, cfg, x, positions)
+        out = _flash(q, k, v, causal)
     B, S = x.shape[:2]
     return linear(p.wo, out.reshape(B, S, cfg.n_heads * cfg.hd))
 

@@ -2,11 +2,13 @@
 set of entry points (init, prefill, decode) per config, so the launcher
 and the serving engine treat every arch alike.
 
-This slice ports the dense decoders (every layer ``attn+mlp``, no
-encoder). Other families raise ``NotImplementedError`` from the entry
-that meets them, naming the ROADMAP item that ports them; ``loss`` waits
-for the training slice. Parameters are a :class:`~.transformer.LM`
-module; entry points run on the card unless given ``device="cpu"``."""
+Every family serves: the decoder-only configs through
+:mod:`.transformer` (parameters an :class:`~.transformer.LM`), the
+encoder-decoder through :mod:`.encdec` (an :class:`~.encdec.EncDec`,
+whose cache comes from ``encdec_init_cache`` with the encoder's frames —
+:meth:`ModelAPI.init_cache` raises for it, as the JAX one does).
+``loss`` waits for the training slice. Entry points run on the card
+unless given ``device="cpu"``."""
 from __future__ import annotations
 
 from typing import Dict
@@ -14,6 +16,7 @@ from typing import Dict
 import torch
 
 from ..core.device import resolve_device
+from . import encdec as encdec_mod
 from . import transformer as tfm
 
 __all__ = ["ModelAPI", "get_model"]
@@ -33,22 +36,26 @@ class ModelAPI:
         self.is_encdec = cfg.enc_layers > 0
 
     # -- params ------------------------------------------------------------
-    def init(self, generator=0, device="cuda") -> tfm.LM:
+    def _module(self):
+        return encdec_mod.EncDec if self.is_encdec else tfm.LM
+
+    def init(self, generator=0, device="cuda"):
         """Seeded parameters in the config's ``param_dtype`` on
-        ``device``: ``generator`` is a ``torch.Generator`` on that device
-        or an int seed. ``ServeEngine`` serves :meth:`serving_params` of
-        them."""
+        ``device`` (``transformer.init_weights``): ``generator`` is a
+        ``torch.Generator`` on that device or an int seed. ``ServeEngine``
+        serves :meth:`serving_params` of them."""
         dev = resolve_device(device)
         if isinstance(generator, int):
             generator = torch.Generator(device=dev).manual_seed(generator)
-        return tfm.init_params(generator, self.cfg, dev)
+        return tfm.init_weights(self._module()(self.cfg, device=dev),
+                                generator)
 
-    def param_shapes(self) -> tfm.LM:
+    def param_shapes(self):
         """The parameter module on the ``meta`` device: shapes and dtypes,
         no memory."""
-        return tfm.LM(self.cfg, device="meta")
+        return self._module()(self.cfg, device="meta")
 
-    def serving_params(self, params) -> tfm.LM:
+    def serving_params(self, params):
         return tfm.serving_params(params)
 
     # -- training ------------------------------------------------------------
@@ -61,6 +68,11 @@ class ModelAPI:
     def prefill(self, params, batch: Dict) -> torch.Tensor:
         dev = _device_of(params)
         frontend = batch.get("frontend")
+        if self.is_encdec:
+            return encdec_mod.encdec_forward(
+                params, self.cfg, torch.as_tensor(batch["tokens"],
+                                                  device=dev),
+                torch.as_tensor(frontend, device=dev), last_only=True)
         if frontend is not None:
             frontend = torch.as_tensor(frontend, device=dev)
         logits, _ = tfm.lm_forward(
@@ -70,16 +82,23 @@ class ModelAPI:
 
     # -- decode ---------------------------------------------------------------
     def cache_spec(self, batch: int, seq: int):
+        if self.is_encdec:
+            return encdec_mod.encdec_cache_spec(self.cfg, batch, seq,
+                                                enc_seq=seq)
         return tfm.cache_spec(self.cfg, batch, seq)
 
     def init_cache(self, batch: int, seq: int, device="cuda"):
+        if self.is_encdec:
+            raise NotImplementedError(
+                "enc-dec cache needs encoder output; use encdec_init_cache")
         return tfm.init_cache(self.cfg, batch, seq, resolve_device(device))
 
     def decode_step(self, params, token, pos, cache):
         dev = _device_of(params)
-        return tfm.lm_decode_step(params, self.cfg,
-                                  torch.as_tensor(token, device=dev),
-                                  torch.as_tensor(pos, device=dev), cache)
+        step = (encdec_mod.encdec_decode_step if self.is_encdec
+                else tfm.lm_decode_step)
+        return step(params, self.cfg, torch.as_tensor(token, device=dev),
+                    torch.as_tensor(pos, device=dev), cache)
 
 
 def get_model(cfg) -> ModelAPI:

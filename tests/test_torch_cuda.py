@@ -9,9 +9,12 @@ card: a gloo ``ppermute`` of a CUDA tensor (staged through pinned host
 memory) and a ranked ``run_distributed``, overlapped and level-serial,
 against the single-process solve, with the level-serial send logs held
 to the plan (``lint_ranked``); ``lint_compiled`` of every executor
-with its captured graph; and the LM serving path at granite-3-2b's full
+with its captured graph; the LM serving path at granite-3-2b's full
 width (2 layers): prefill against teacher-forced decode, the kernel
-route against the plain route, and the launches of each.
+route against the plain route, and the launches of each; and the MoE,
+jamba, xLSTM and enc-dec families at full width, depth cut: the kernel
+route against the plain route, their launches, MoE served tokens
+repeated bitwise, and the f32 weights of the serving model.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one, save the check that ``ModelAPI.init(device="cuda")`` raises on a
@@ -900,3 +903,154 @@ def test_model_init_on_the_card_raises_without_one():
     api = get_model(reduced_config(get_config("granite-3-2b")))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.init(0, device="cuda")
+
+
+# ---- the other LM families at full width, depth cut ------------------------
+
+#: each family at its published width, cut to 1-2 layers (jamba: its
+#: 8-layer period with 2 of 16 experts; seamless: 2 + 2 layers)
+FAMILY_CUTS = {"dbrx-132b": dict(n_layers=1), "grok-1-314b": dict(n_layers=1),
+               "jamba-1.5-large-398b": dict(n_layers=8, n_experts=2),
+               "xlstm-125m": dict(n_layers=3),
+               "seamless-m4t-large-v2": dict(n_layers=2, enc_layers=2)}
+
+
+def _family(dev, arch):
+    import dataclasses
+
+    from repro_torch.config import get_config
+    from repro_torch.models import get_model
+    cfg = dataclasses.replace(get_config(arch), **FAMILY_CUTS[arch])
+    api = get_model(cfg)
+    return cfg, api, api.serving_params(api.init(0, device=dev))
+
+
+def _family_run(api, cfg, params, S=256, steps=8):
+    """(prefill logits, decode logits, routings of each) at B = 1."""
+    from repro_torch.models import encdec
+    from repro_torch.models.moe import RouteLog
+    from repro_torch.models.transformer import lm_forward
+    dev = params.embed.table.device
+    g = torch.Generator(device=dev).manual_seed(12)
+    toks = torch.randint(0, cfg.vocab, (1, S), device=dev, generator=g)
+    with RouteLog() as pre:
+        if cfg.enc_layers:
+            frames = torch.randn(1, 128, cfg.d_model, device=dev,
+                                 generator=g)
+            full = encdec.encdec_forward(params, cfg, toks, frames)
+            cache = encdec.encdec_init_cache(params, cfg, frames, S)
+        else:
+            full, _ = lm_forward(params, cfg, toks)
+            cache = api.init_cache(1, S, device=dev)
+    dec = []
+    with RouteLog() as steps_r:
+        for t in range(steps):
+            lg, cache = api.decode_step(params, toks[:, t],
+                                        torch.full((1,), t, device=dev),
+                                        cache)
+            dec.append(lg)
+    torch.cuda.synchronize()
+    return full, torch.stack(dec, 1), pre.calls, steps_r.calls
+
+
+def _rows_close(out, ref, vocab, skip):
+    keep = [t for t in range(out.shape[1]) if t not in skip]
+    assert len(keep) >= out.shape[1] // 2
+    idx = torch.tensor(keep, device=out.device)
+    return _lm_close(out.index_select(1, idx), ref.index_select(1, idx),
+                     vocab)
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_CUTS))
+def test_family_kernel_route_matches_plain_route(cuda_device, arch):
+    """Prefill and 8 decode steps through the kernels and through their
+    plain versions (``layers.plain_kernels``), within the LM tolerance
+    over the positions whose MoE routing did not differ between them
+    (``moe.route_flips``: each flip a near-tie)."""
+    from repro_torch.models import layers as ml
+    from repro_torch.models.moe import route_flips, routes_by_layer
+    cfg, api, params = _family(cuda_device, arch)
+    full, dec, rp, rd = _family_run(api, cfg, params)
+    before = (rk.launches, fa.launches)
+    with ml.plain_kernels():
+        pfull, pdec, pp, pd = _family_run(api, cfg, params)
+    assert (rk.launches, fa.launches) == before
+    per = len(rp)                            # MoE calls a forward
+    S, steps = full.shape[1], dec.shape[1]
+    skip = route_flips(pp, rp, S, f"{arch} prefill") if per else {}
+    assert _rows_close(full, pfull, cfg.vocab, skip)
+    skip = route_flips(routes_by_layer(pd, per, 1), routes_by_layer(
+        rd, per, 1), steps, f"{arch} decode") if per else {}
+    assert _rows_close(dec, pdec, cfg.vocab, skip)
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_CUTS))
+def test_family_launch_counts(cuda_device, arch):
+    """Flash launches a prefill (each self-attention; seamless: the
+    encoder's non-causal and the decoder's causal, none for
+    cross-attention), all on the tensor cores; RMSNorm launches a decode
+    step: 2 a mixer+ffn layer, 1 an xLSTM layer, 3 an enc-dec decoder
+    layer, and the final norm."""
+    from repro_torch.models import encdec
+    from repro_torch.models.transformer import layer_kinds
+    cfg, api, params = _family(cuda_device, arch)
+    toks = torch.randint(0, cfg.vocab, (1, 256), device=cuda_device)
+    rk.launches = fa.launches = 0
+    fa.plans.clear()
+    if cfg.enc_layers:
+        frames = torch.randn(1, 128, cfg.d_model, device=cuda_device)
+        api.prefill(params, {"tokens": toks, "frontend": frames})
+        flash = cfg.enc_layers + cfg.n_layers
+        norms = 2 * cfg.enc_layers + 1 + 3 * cfg.n_layers + 1
+        step = 3 * cfg.n_layers + 1
+    else:
+        api.prefill(params, {"tokens": toks})
+        kinds = layer_kinds(cfg)
+        flash = sum(k.startswith("attn") for k in kinds)
+        norms = step = 1 + sum(1 if k in ("mlstm", "slstm") else 2
+                               for k in kinds)
+    torch.cuda.synchronize()
+    assert (fa.launches, rk.launches) == (flash, norms)
+    assert set(fa.plans) <= {"hmma_cpasync", "hmma_guarded"}
+    cache = (encdec.encdec_init_cache(params, cfg, frames, 256)
+             if cfg.enc_layers else api.init_cache(1, 256, device=cuda_device))
+    rk.launches = fa.launches = 0
+    api.decode_step(params, toks[:, 0], torch.zeros(1, dtype=torch.long),
+                    cache)
+    torch.cuda.synchronize()
+    assert (fa.launches, rk.launches) == (0, step)
+
+
+def test_moe_served_tokens_are_bitwise_repeatable(cuda_device):
+    """dbrx at full width (1 layer) through ``ServeEngine`` twice on the
+    same requests: the same tokens — the combine has no atomics."""
+    from repro_torch.runtime import Request, ServeEngine
+    cfg, api, params = _family(cuda_device, "dbrx-132b")
+    outs = []
+    for _ in range(2):
+        eng = ServeEngine(api, params, batch_slots=4, max_seq=64)
+        reqs = [Request(rid=i, prompt=[1 + i, 7, 3 * i + 2], max_new=8)
+                for i in range(6)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        assert all(r.done and len(r.out) == 8 for r in reqs)
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def test_serving_params_keep_the_f32_weights_on_the_card(cuda_device):
+    """jamba's serving model on the card: bf16 but for the MoE router,
+    ``A_log`` and ``dt_bias``, in f32."""
+    from repro_torch.models.transformer import F32_PARAMS
+    cfg, api, params = _family(cuda_device, "jamba-1.5-large-398b")
+    kept = set()
+    for name, w in params.named_parameters():
+        assert w.is_cuda
+        if name.endswith(F32_PARAMS):
+            assert w.dtype == torch.float32, name
+            kept.add(name.rsplit(".", 1)[-1])
+        else:
+            assert w.dtype == torch.bfloat16, name
+    assert kept == {"w", "A_log", "dt_bias"}
+    assert api.serving_params(params) is params
