@@ -158,6 +158,34 @@ on the card:
    slots dropped by capacity per step) and on xlstm-125m, 16 requests on 8
    slots of a 2048-token cache, and ``python -m repro_torch.launch.serve
    --arch xlstm-125m --scale full`` exiting 0;
+2c. (after phase 2b) holds the training path's backward kernels
+   (``rmsnorm_bwd``, ``flash_attention_bwd``) against their plain versions
+   (``kernels/ref.py``) at its shapes — flash (2, 4096, 32, 64) bf16
+   causal (granite-3-2b's training attention), (1, 4096, 64, 128) causal,
+   (1, 1024, 16, 64) non-causal and a small f32 case; RMSNorm 8192 × 2048
+   bf16, the 262144 × 128 qk-norm rows and an f32 case — bitwise
+   repeatable, timed beside the bound, the plain version and the library
+   backward (SDPA's, ``F.rms_norm``'s, through autograd); and the flash
+   forward with its log-sum-exp output on and off: the same bits, both
+   timed;
+12. trains (``repro_torch.launch.steps.build_train_step``: the loss, its
+   backward through the four kernels, AdamW): (a) granite-3-2b at full
+   size (2.53 B f32 parameters, AdamW f32, remat per block) at train_4k's
+   (2, 4096), the global batch cut from 256 to 2, for 5 steps: step ms,
+   tokens/s, peak memory, each step's loss and grad_norm finite and its
+   launches (flash 80 forward + 40 backward, RMSNorm 161 + 81), and a
+   traced step's device time by kernel class (only from a trace holding
+   every hand-written kernel the step launched); (b) the
+   same at depth 2: one step's gradients on the kernel route against
+   ``layers.plain_kernels()``, every leaf within 0.15 relative; (c) the
+   depth-2 model through ``run_train_loop`` with checkpoints in a
+   temporary directory: 4 steps against 2 + a resumed 2, bitwise; (d)
+   dbrx, grok, jamba, xlstm-125m and seamless at ``reduced_config(d_model
+   512, 8 heads of 64)``: kernels against plain (jamba within 2 ×; MoE
+   near-tie flips shown, their rows masked), and one step; (e) ``python
+   -m repro_torch.launch.train --arch granite-3-2b --scale reduced
+   --steps 3 --batch 2 --seq 256`` with a temporary ``--ckpt``, exiting 0
+   with its ``[train] done`` line;
 9. writes every measured row to ``build/chip_smoke.json`` and prints the
    kernels' JSON line, the total wall time, the card line and, last, the
    result.
@@ -252,12 +280,14 @@ def bound(Z, M, N, K, dtype_name, elt):
 
 
 KERNELS = ("block_gemm", "trsm", "rmsnorm", "flash_attention")
+#: the backward kernels of the training path (phase 12)
+BWD_KERNELS = ("rmsnorm_bwd", "flash_attention_bwd")
 
 
-def _kernel_modules():
+def _kernel_modules(names=KERNELS + BWD_KERNELS):
     import importlib
     return {n: importlib.import_module(f"repro_torch.kernels.{n}")
-            for n in KERNELS}
+            for n in names}
 
 
 def zero_counts():
@@ -269,8 +299,10 @@ def zero_counts():
             mod.plans.clear()
 
 
-def read_counts():
-    return {n: mod.launches for n, mod in _kernel_modules().items()}
+def read_counts(names=KERNELS):
+    """The launch counts of the forward kernels (of every kernel, the
+    backward ones too, with ``names=KERNELS + BWD_KERNELS``)."""
+    return {n: mod.launches for n, mod in _kernel_modules(names).items()}
 
 
 def check_close(kernel, out, ref, name, what, tol, bf16_tol=BF16_TOL):
@@ -314,6 +346,7 @@ SASS_REQUIRED = {
     "block_gemm": [("block_gemm_kernel<double", "DMMA"),
                    ("block_gemm_kernel<__nv_bfloat16", "HMMA")],
     "flash_attention": [("flash_hmma_kernel<", "HMMA")],
+    "flash_attention_bwd": [("dkdv_kernel<", "HMMA"), ("dq_kernel<", "HMMA")],
 }
 CTYPE = {"float64": "double", "bfloat16": "__nv_bfloat16",
          "float32": "float"}
@@ -340,7 +373,9 @@ def instance_name(mangled):
     ``block_gemm_kernel<double, 96>``); the symbol itself if it is not one
     of the port's kernel templates."""
     m = re.search(r"\d+(block_gemm_kernel|flash_hmma_kernel|flash_kernel|"
-                  r"trsm_kernel|rmsnorm_kernel|rmsnorm_two_pass)I", mangled)
+                  r"trsm_kernel|rmsnorm_kernel|rmsnorm_two_pass|"
+                  r"rmsnorm_bwd_kernel|flash_bwd_dkdv|flash_bwd_dq|"
+                  r"dkdv_kernel|dq_kernel)I", mangled)
     if not m:
         return mangled
     args, pos = [], m.end()
@@ -953,7 +988,11 @@ def trace_device(fn, classify, warm=0):
     before it run under the profiler's warm-up (traced, discarded).
     ``classify`` maps a kernel's name to its class. Returns the wall
     (µs), device time (µs) and kernels recorded by class, and the kernels
-    as (µs, count, name)."""
+    as (µs, count, name). Only the kernels and copies on the device
+    count: a CPU range also carries the time of the kernels launched
+    directly under it (a ctypes kernel in an autograd node), and an
+    annotation's span on the device covers the whole step, so either
+    would count kernel time twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -975,8 +1014,12 @@ def trace_device(fn, classify, warm=0):
     classes, counts, kernels = {}, {}, []
     for ev in p.key_averages():
         t = getattr(ev, "self_device_time_total", 0) or 0
-        # the schedule's step annotation carries the step's span
-        if t <= 0 or ev.key.startswith(("aten::", "ProfilerStep")):
+        # the device's kernels and copies, not the spans the profiler
+        # draws on the device for an annotation (its step, a
+        # record_function)
+        if (t <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)
+                or ev.key.startswith("ProfilerStep")):
             continue
         c = classify(ev.key)
         classes[c] = classes.get(c, 0.0) + t
@@ -2882,29 +2925,30 @@ def _lm_class(k):
     return "elementwise / index / softmax"
 
 
-def lm_trace(fn, rms_launches, tries=3):
+def lm_trace(fn, expect, classify=_lm_class, tries=3):
     """``fn()`` traced after one warm-up call (:func:`trace_device`):
     device time by kernel class against its wall. A trace counts only
-    when it holds the ``rms_launches`` RMSNorm kernels ``fn`` launched
-    (the profiler can lose the kernels launched through ctypes) and no
-    more device time than its wall (one stream). Up to ``tries`` traces
-    are taken, two calls of ``fn`` each; with none complete the busy
-    share reads not measured."""
+    when it holds, for each class of ``expect`` (a dict), the number of
+    hand-written kernels ``fn`` launched (the profiler can lose the
+    kernels launched through ctypes) and no more device time than its
+    wall (one stream). Up to ``tries`` traces are taken, two calls of
+    ``fn`` each; with none complete the busy share reads not measured."""
     recorded = []
     for _ in range(tries):
-        wall_us, classes, counts, _ = trace_device(fn, _lm_class, warm=1)
+        wall_us, classes, counts, _ = trace_device(fn, classify, warm=1)
         busy = sum(classes.values())
-        recorded.append(counts.get(_RMS_CLASS, 0))
-        if 0 < busy <= wall_us and recorded[-1] == rms_launches:
+        recorded.append({c: counts.get(c, 0) for c in expect})
+        if 0 < busy <= wall_us and recorded[-1] == expect:
             return dict(wall_us=wall_us, busy_us=busy,
-                        busy_share=busy / wall_us,
-                        kernels=sum(counts.values()),
-                        rmsnorm_recorded=recorded, classes_us=classes)
-        log(f"  trace: {recorded[-1]} of {rms_launches} RMSNorm kernels, "
-            f"{busy:.0f} µs of device time in a {wall_us:.0f} µs wall")
+                        busy_share=busy / wall_us, classes_us=classes,
+                        kernels=sum(counts.values()), class_kernels=counts,
+                        recorded=recorded)
+        log(f"  trace: recorded {recorded[-1]} of {expect} hand-written "
+            f"kernels, {busy:.0f} µs of device time in a {wall_us:.0f} µs "
+            "wall")
     log("  trace: no complete trace — busy share not measured")
     return dict(wall_us=wall_us, busy_us=None, busy_share=None,
-                rmsnorm_recorded=recorded)
+                recorded=recorded)
 
 
 def _lm_model(dev, arch, n_layers=None, **cut):
@@ -3103,7 +3147,7 @@ def lm_serve_path(dev, arch="granite-3-2b", serve=LM_SERVE,
         eng.step()
     t1 = time.perf_counter()
     traced_tok, i0 = made(), len(eng.step_s)
-    trace = lm_trace(eng.step, per_step)
+    trace = lm_trace(eng.step, {_RMS_CLASS: per_step})
     traced_tok, i1 = made() - traced_tok, len(eng.step_s)
     t2 = time.perf_counter()
     eng.run()
@@ -3553,6 +3597,564 @@ def families_path(dev, cli_requests=4, timeout=300):
                 wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 2c: the backward kernels against their plain versions, and the
+# flash forward's log-sum-exp output
+# ---------------------------------------------------------------------------
+
+#: flash backward shapes (B, S, H, hd), dtype, causal: granite's training
+#: attention, the hd-128 width (qwen3-32b), a non-causal (seamless's
+#: encoder) and a small f32 case
+BWD_FLASH_SHAPES = [((2, 4096, 32, 64), "bfloat16", True),
+                    ((1, 4096, 64, 128), "bfloat16", True),
+                    ((1, 1024, 16, 64), "bfloat16", False),
+                    ((1, 333, 4, 64), "float32", True)]
+#: RMSNorm backward rows: granite's d_model rows at (2, 4096), qwen3's
+#: qk-norm rows (4096 tokens × 64 heads), an f32 case
+BWD_RMS_SHAPES = [(8192, 2048, "bfloat16"), (262144, 128, "bfloat16"),
+                  (4096, 2048, "float32")]
+
+
+def grads_close(kernel, got, ref, name, what):
+    """max|Δ| of each gradient against its plain version: f32 within
+    1e-4 · max|plain| (sums in another order), bf16 |Δ| ≤ 1e-2·|plain| +
+    1e-3 · max|plain| (one rounding of f32 values that differ so). Returns
+    (max|Δ|, share of the tolerance); raises past it."""
+    import torch
+    err, used = 0.0, 0.0
+    for a, b in zip(got, ref):
+        a, b = a.double(), b.double()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{kernel} {what}: non-finite output")
+        d = (a - b).abs()
+        top = b.abs().max().item()
+        tol = (1e-2 * b.abs() + 1e-3 * top if name == "bfloat16"
+               else torch.full_like(b, 1e-4 * top))
+        err = max(err, d.max().item())
+        used = max(used, (d / tol.clamp_min(1e-300)).max().item())
+    if not used <= 1.0:
+        raise AssertionError(f"{kernel} {what} {name}: {used:.2f}× the "
+                             "tolerance")
+    return err, used
+
+
+def backward_checks(dev):
+    """Phase 2c: each backward kernel against its plain version on the
+    card, timed beside its bound, the plain version and the library's
+    backward (SDPA's and ``F.rms_norm``'s, through autograd on a graph
+    kept for the timing); the flash forward with the lse output on and
+    off, bitwise, and both timed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import rmsnorm_bwd as rb
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    rows = []
+    for (B, S, H, hd), name, causal in BWD_FLASH_SHAPES:
+        dt = _dtypes()[name]
+        q, k, v, dout = (torch.randn(B, S, H, hd, device=dev, generator=g
+                                     ).to(dt) for _ in range(4))
+        off = fa.flash_attention(q, k, v, causal)
+        out, lse = fa.flash_attention(q, k, v, causal, lse=True)
+        if not torch.equal(out, off):
+            raise AssertionError(f"flash {B}x{S}x{H}x{hd} {name}: the output"
+                                 " differs with the lse output on")
+        on_ms = timed_ms(lambda: fa.flash_attention(q, k, v, causal,
+                                                    lse=True))
+        off_ms = timed_ms(lambda: fa.flash_attention(q, k, v, causal))
+        got = fb.flash_attention_bwd(q, k, v, out, dout, lse, causal)
+        ref = fb.flash_attention_bwd_plain(q, k, v, out, dout, lse, causal)
+        torch.cuda.synchronize()
+        what = f"B={B} S={S} H={H} hd={hd} causal={causal}"
+        err, used = grads_close("flash_attention_bwd", got, ref, name, what)
+        again = fb.flash_attention_bwd(q, k, v, out, dout, lse, causal)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {what}: not bitwise "
+                                 "repeatable")
+        del ref, again, got
+        torch.cuda.empty_cache()
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dt_ = dout.transpose(1, 2).contiguous()
+        pairs = S * (S + 1) // 2 if causal else S * S
+        p = fb.plan(B, S, H, hd, dt)
+        if name == "bfloat16" and p.variant != "hmma_cpasync":
+            raise AssertionError(f"flash_attention_bwd {what}: {p.variant}")
+        elt = q.element_size()
+        rows.append(_row(
+            "flash_attention_bwd", f"{B}x{S}x{H}x{hd}", name, err,
+            lambda: fb.flash_attention_bwd(q, k, v, out, dout, lse, causal),
+            lambda: fb.flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                                 causal),
+            lambda: torch.autograd.grad(ot, (qt, kt, vt), dt_,
+                                        retain_graph=True),
+            8 * B * S * H * hd * elt + 4 * B * H * S,
+            10 * B * H * hd * pairs, causal=causal, tol_used=used,
+            variant=p.variant, tile=f"{p.bq}x{p.bk}",
+            forward_lse_on_ms=on_ms, forward_lse_off_ms=off_ms,
+            kernel_lib="flash_attention_bwd",
+            symbol=(f"flash_bwd_dkdv<{CTYPE[name]}, {hd}, {p.bk}>"
+                    if p.variant == "fma_f32" else f"dkdv_kernel<{hd}, "
+                    f"{p.bq}, {str(p.variant == 'hmma_cpasync').lower()}>")))
+        log(f"  flash forward {what} {name}: lse on {on_ms:.4f} ms, off "
+            f"{off_ms:.4f} ms, the output bitwise the same")
+        del q, k, v, dout, out, lse, off, qt, kt, vt, ot, dt_
+        torch.cuda.empty_cache()
+    for r, d, name in BWD_RMS_SHAPES:
+        dt = _dtypes()[name]
+        x, dy = (torch.randn(r, d, device=dev, generator=g).to(dt)
+                 for _ in range(2))
+        s = torch.randn(d, device=dev, generator=g).to(dt)
+        got = rb.rmsnorm_bwd(x, s, dy)
+        ref = rb.rmsnorm_bwd_plain(x, s, dy)
+        torch.cuda.synchronize()
+        err, used = grads_close("rmsnorm_bwd", got[:1], ref[:1], name,
+                                f"{r}x{d} dx")
+        xf = x.float()
+        mag = (dy.float() * xf * torch.rsqrt(
+            xf.square().mean(-1, keepdim=True) + 1e-5)).abs().sum(0)
+        ds_used = ((got[1] - ref[1].float()).abs() / (1e-5 * mag)
+                   ).max().item()
+        if not ds_used <= 1.0:
+            raise AssertionError(f"rmsnorm_bwd {r}x{d} {name}: ds uses "
+                                 f"{ds_used:.2f}× 1e-5·Σ|dy·x·r|")
+        again = rb.rmsnorm_bwd(x, s, dy)
+        if not (torch.equal(got[0], again[0])
+                and torch.equal(got[1], again[1])):
+            raise AssertionError(f"rmsnorm_bwd {r}x{d}: not bitwise "
+                                 "repeatable")
+        xl, sl = x.clone().requires_grad_(), s.clone().requires_grad_()
+        yl = F.rms_norm(xl, (d,), weight=sl, eps=1e-5)
+        p = rb.plan(r, d, dt)
+        elt = x.element_size()
+        rows.append(_row(
+            "rmsnorm_bwd", f"{r}x{d}", name, err,
+            lambda: rb.rmsnorm_bwd(x, s, dy),
+            lambda: rb.rmsnorm_bwd_plain(x, s, dy),
+            lambda: torch.autograd.grad(yl, (xl, sl), dy, retain_graph=True),
+            3 * r * d * elt + d * elt + 4 * d, 10 * r * d, reps=SMALL_REPS,
+            rows=r, d=d, tol_used=max(used, ds_used), variant=p.variant,
+            tile=f"{p.g} threads x {p.ppt} packs of {p.width} a row, "
+                 f"{p.rpb} rows x {p.blocks} blocks",
+            kernel_lib="rmsnorm_bwd",
+            symbol=f"rmsnorm_bwd_kernel<{CTYPE[name]}, {p.width}, {p.ppt}, "
+                   f"{CTYPE[name]}>"))
+        del x, dy, s, got, ref, again, xl, sl, yl
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the LM training path
+# ---------------------------------------------------------------------------
+
+#: the gradient tolerance of the CPU tests (``tests/test_torch_train.py``):
+#: ‖g − g_ref‖ / ‖g_ref‖ per parameter; jamba 2 ×
+GRAD_TOL = 0.15
+TRAIN_NOISY = {"jamba-1.5-large-398b": 2.0}
+#: phase 12a: granite-3-2b at full size, train_4k's sequence, batch cut
+#: from 256 to 2 to fit one card
+TRAIN_SHAPE = (2, 4096)
+TRAIN_STEPS = 5
+#: phase 12d: the other families at d_model 512, 8 heads of 64
+TRAIN_FAMILIES = ["dbrx-132b", "grok-1-314b", "jamba-1.5-large-398b",
+                  "xlstm-125m", "seamless-m4t-large-v2"]
+
+
+def _grad_readings(got, ref):
+    """{name: ‖got − ref‖ / ‖ref‖} over every gradient."""
+    out = {}
+    for k, g in got.items():
+        r = ref[k].double()
+        n = r.norm().item()
+        out[k] = ((g.double() - r).norm().item() / n if n
+                  else float(g.double().norm().item() > 0))
+    return out
+
+
+def _train_grads(api, params, batch, plain=False):
+    import torch
+    from repro_torch.models import layers as ml
+    for w in params.parameters():
+        w.grad = None
+    if plain:
+        with ml.plain_kernels():
+            loss = api.loss(params, batch)
+            loss.backward()
+    else:
+        loss = api.loss(params, batch)
+        loss.backward()
+    grads = {k: w.grad.clone() if w.grad is not None
+             else torch.zeros_like(w) for k, w in params.named_parameters()}
+    for w in params.parameters():
+        w.grad = None
+    return float(loss.detach()), grads
+
+
+_RMS_BWD_CLASS = "rmsnorm backward (hand-written)"
+_FLASH_CLASS = "flash forward (hand-written)"
+_FLASH_BWD_CLASS = "flash backward (hand-written)"
+#: kernels a counted call launches: the flash backward's D pre-pass,
+#: dK/dV and dQ; the RMSNorm backward's rows and its ds second pass
+FLASH_BWD_KERNELS, RMS_BWD_KERNELS = 3, 2
+
+
+def _train_class(k):
+    if "rmsnorm_bwd" in k:
+        return _RMS_BWD_CLASS
+    if "rmsnorm" in k:
+        return _RMS_CLASS
+    if any(x in k for x in ("flash_bwd", "dkdv_kernel", "dq_kernel")):
+        return _FLASH_BWD_CLASS
+    if "flash" in k:
+        return _FLASH_CLASS
+    if any(x in k for x in _CUBLAS):
+        return "cuBLAS (linears, logits)"
+    return "elementwise / index / reductions (AdamW, casts, loss)"
+
+
+def train_full(dev):
+    """Phase 12a: ``build_train_step`` on granite-3-2b at full size
+    (2.53 B f32 parameters, AdamW f32, remat per block) at (2, 4096),
+    :data:`TRAIN_STEPS` steps from the port's seeded init, no checkpoint.
+    Each step timed to the card's end (synchronised); every loss and
+    grad_norm finite; the launches of each step against the count of the
+    layers."""
+    import torch
+    from repro_torch.config import SHAPES, ShapeConfig, get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import build_train_step, state_dtype_of
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+
+    _empty_cache(dev)
+    cfg = get_config("granite-3-2b")
+    base = SHAPES["train_4k"]
+    B, S = TRAIN_SHAPE
+    shape = ShapeConfig(base.name, S, B, base.mode)
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params = api.train_params(api.init(0, device=dev))
+    opt = adamw_init(params, state_dtype=state_dtype_of(cfg))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(w.numel() for w in params.parameters())
+    step_fn = build_train_step(cfg, shape, dev)
+    pipe = SyntheticTokens(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    L = cfg.n_layers
+    want = dict(rmsnorm=2 * L + 1 + 2 * L, flash_attention=2 * L,
+                rmsnorm_bwd=2 * L + 1, flash_attention_bwd=L)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    zero_counts()
+    for i in range(TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in pipe.batch_at(i).items()}
+        before = read_counts(KERNELS + BWD_KERNELS)
+        _sync(dev)
+        t = time.perf_counter()
+        params, opt, loss, mx = step_fn(params, opt, batch, i)
+        _sync(dev)
+        dt = time.perf_counter() - t
+        after = read_counts(KERNELS + BWD_KERNELS)
+        per = {k: after[k] - before[k] for k in want}
+        lv, gn = float(loss), float(mx["grad_norm"])
+        steps.append(dict(step=i, ms=1e3 * dt, loss=lv, grad_norm=gn,
+                          launches=per))
+        log(f"  granite-3-2b train step {i}: {1e3 * dt:.1f} ms, loss "
+            f"{lv:.4f}, grad_norm {gn:.4f}, launches {per}")
+        if not (torch.isfinite(loss) and torch.isfinite(mx["grad_norm"])):
+            raise AssertionError(f"train step {i}: loss {lv}, grad_norm {gn}")
+        if per != want and dev.type == "cuda":
+            raise AssertionError(f"train step {i}: launches {per}, want "
+                                 f"{want}")
+    counts = read_counts(KERNELS + BWD_KERNELS)
+    variants = {n: dict(m.plans) for n, m in _kernel_modules(
+        ("flash_attention",) + BWD_KERNELS).items()}
+    peak = torch.cuda.max_memory_allocated()
+    ms = [s_["ms"] for s_ in steps]
+    med = statistics.median(ms[1:])
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+    # one more step traced for where its time goes (not in the step
+    # times), accepted only with every hand-written kernel it launched
+    trace = lm_trace(
+        lambda: step_fn(params, opt, batch, TRAIN_STEPS),
+        {_RMS_CLASS: want["rmsnorm"], _FLASH_CLASS: want["flash_attention"],
+         _RMS_BWD_CLASS: RMS_BWD_KERNELS * want["rmsnorm_bwd"],
+         _FLASH_BWD_CLASS: FLASH_BWD_KERNELS * want["flash_attention_bwd"]},
+        classify=_train_class)
+    if trace["busy_us"] is not None:
+        log("  traced step: " + ", ".join(
+            f"{k} {v / 1e3:.1f} ms ({trace['class_kernels'][k]} kernels)"
+            for k, v in sorted(trace["classes_us"].items(),
+                               key=lambda x: -x[1]))
+            + f"; device time {trace['busy_us'] / 1e3:.1f} ms of a "
+            f"{trace['wall_us'] / 1e3:.1f} ms traced wall "
+            f"({100 * trace['busy_share']:.1f} %)")
+    res = dict(arch="granite-3-2b", reduced="global batch 256→2",
+               shape=[B, S], params=n_params, init_s=init_s, steps=steps,
+               step_ms_median=med, tok_per_s=B * S / (med / 1e3),
+               peak_bytes=peak, launches=counts,
+               launches_per_step=want, trace=trace, variants=variants)
+    log(f"phase 12a: granite-3-2b full size ({n_params / 1e9:.3f} B f32 "
+        f"params, AdamW f32, remat per block; train_4k cut to batch {B}): "
+        f"step ms {', '.join(f'{x:.1f}' for x in ms)}; median of steps 1–"
+        f"{TRAIN_STEPS - 1} {med:.1f} ms, {res['tok_per_s']:.0f} tokens/s; "
+        f"peak {peak / 2**30:.2f} GiB; launches a step {want}")
+    del params, opt, step_fn
+    _empty_cache(dev)
+    return res
+
+
+def train_kernels_vs_plain(dev):
+    """Phase 12b: granite at full width, depth cut to 2, one step's loss
+    and gradients at (2, 4096) on the kernel route against
+    ``layers.plain_kernels()``, each leaf within :data:`GRAD_TOL`."""
+    import dataclasses
+
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import get_model
+
+    _empty_cache(dev)
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=2)
+    api = get_model(cfg)
+    params = api.train_params(api.init(0, device=dev))
+    B, S = TRAIN_SHAPE
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticTokens(
+        vocab=cfg.vocab, seq_len=S, global_batch=B).batch_at(0).items()}
+    zero_counts()
+    loss_k, gk = _train_grads(api, params, batch)
+    _sync(dev)
+    counts = read_counts(KERNELS + BWD_KERNELS)
+    zero_counts()
+    loss_p, gp = _train_grads(api, params, batch, plain=True)
+    _sync(dev)
+    plain_counts = read_counts(KERNELS + BWD_KERNELS)
+    if any(plain_counts.values()):
+        raise AssertionError(f"12b: the plain route launched {plain_counts}")
+    rel = _grad_readings(gk, gp)
+    worst = max(rel, key=rel.get)
+    log(f"phase 12b: granite depth 2 at {TRAIN_SHAPE}, kernels vs plain: loss "
+        f"{loss_k:.6f} vs {loss_p:.6f}, worst leaf {worst} {rel[worst]:.4f}"
+        f" ({rel[worst] / GRAD_TOL:.3f} of the tolerance {GRAD_TOL}); "
+        f"launches {counts}")
+    if not (rel[worst] <= GRAD_TOL and abs(loss_k - loss_p) <= 5e-3):
+        raise AssertionError(f"12b: {worst} reads {rel[worst]:.4f}; loss "
+                             f"{loss_k} vs {loss_p}")
+    del params, gk, gp
+    _empty_cache(dev)
+    return dict(loss_kernels=loss_k, loss_plain=loss_p, worst_leaf=worst,
+                worst_rel=rel[worst], tol=GRAD_TOL, launches=counts)
+
+
+def train_resume(dev):
+    """Phase 12c: the depth-2 model through ``run_train_loop`` with
+    checkpoints in a temporary directory: 4 steps in one loop, against 2
+    steps, a checkpoint and a new loop resuming for 2 more; the losses
+    and every parameter and moment bitwise equal."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.manager import flatten
+    from repro_torch.config import ShapeConfig, get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import TrainLoopConfig, run_train_loop
+
+    _empty_cache(dev)
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=2)
+    B, S = TRAIN_SHAPE
+    api = get_model(cfg)
+    step_fn = build_train_step(cfg, ShapeConfig("t", S, B, "train"), dev,
+                               peak_lr=3e-2)
+    pipe = SyntheticTokens(vocab=cfg.vocab, seq_len=S, global_batch=B)
+
+    def to_dev(b):
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    def run(total, ckdir, every):
+        p = api.train_params(api.init(0, device=dev))
+        return run_train_loop(step_fn, p, adamw_init(p), pipe,
+                              TrainLoopConfig(total_steps=total,
+                                              ckpt_every=every,
+                                              ckpt_dir=ckdir),
+                              to_device=to_dev, log=log)
+
+    t0 = time.perf_counter()
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        full = run(4, f"{tmp}/a", 100)
+        full_state = [(k, t.clone()) for k, t in flatten(
+            (full["params"], full["opt_state"]))]
+        del full["params"], full["opt_state"]
+        half = run(2, f"{tmp}/b", 2)
+        del half["params"], half["opt_state"]
+        rest = run(4, f"{tmp}/b", 2)
+        ck_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*.npz"))
+    counts = read_counts(KERNELS + BWD_KERNELS)
+    wall = time.perf_counter() - t0
+    losses = half["losses"] + rest["losses"]
+    same = losses == full["losses"] and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            full_state, flatten((rest["params"], rest["opt_state"]))))
+    log(f"phase 12c: depth 2 through run_train_loop: uninterrupted losses "
+        f"{full['losses']}, resumed {losses}; parameters and moments "
+        f"{'bitwise equal' if same else 'DIFFER'}; {ck_bytes / 1e9:.2f} GB "
+        f"of checkpoints, {wall:.1f} s")
+    if not same:
+        raise AssertionError("12c: the resumed run differs from the "
+                             "uninterrupted one")
+    del rest, full_state
+    _empty_cache(dev)
+    return dict(losses=full["losses"], resumed=losses, bitwise=same,
+                checkpoint_bytes=ck_bytes, wall_s=wall,
+                step_s=full["step_s"], launches=counts)
+
+
+def train_family(dev, arch):
+    """Phase 12d: one family at ``reduced_config(d_model=512, n_heads=8,
+    head_dim=64)``: one step's gradients on the kernel route against the
+    plain route (MoE routing flips at near-ties shown and their rows
+    masked out of the loss in both), then one ``build_train_step`` step
+    on the kernel route, its loss and grad_norm finite."""
+    import torch
+    from repro_torch.config import ShapeConfig, get_config, reduced_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import build_train_step, state_dtype_of
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as ml
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.optim import adamw_init
+
+    cfg = reduced_config(get_config(arch), d_model=512, n_heads=8,
+                         head_dim=64)
+    B, S = 2, 128
+    api = get_model(cfg)
+    params = api.train_params(api.init(0, device=dev))
+    pipe = SyntheticTokens(
+        vocab=cfg.vocab, seq_len=S, global_batch=B,
+        frontend_tokens=(cfg.n_frontend_tokens if cfg.frontend == "vision"
+                         else (S if cfg.enc_layers else 0)),
+        d_model=cfg.d_model)
+    raw = pipe.batch_at(0)
+    flips = {}
+    if cfg.n_experts:
+        with torch.no_grad():
+            with moe.RouteLog() as kr:
+                api.loss(params, raw)
+            with ml.plain_kernels(), moe.RouteLog() as pr:
+                api.loss(params, raw)
+        flips = moe.route_flips(kr.calls, pr.calls, S, f"12d {arch}",
+                                log=log)
+        kinds = layer_kinds(cfg)
+        moes = [l for l, k in enumerate(kinds) if k.endswith("+moe")]
+        for row, call in flips.items():
+            b, t = divmod(row, S)
+            last = moes[call] == len(kinds) - 1
+            raw["loss_mask"][b, t:t + 1 if last else S] = 0.0
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    zero_counts()
+    loss_k, gk = _train_grads(api, params, batch)
+    _sync(dev)
+    counts = read_counts(KERNELS + BWD_KERNELS)
+    loss_p, gp = _train_grads(api, params, batch, plain=True)
+    rel = _grad_readings(gk, gp)
+    worst = max(rel, key=rel.get)
+    bound = TRAIN_NOISY.get(arch, 1.0)
+    step_fn = build_train_step(cfg, ShapeConfig("t", S, B, "train"), dev)
+    opt = adamw_init(params, state_dtype=state_dtype_of(cfg))
+    zero_counts()
+    params, opt, loss, mx = step_fn(params, opt, batch, 0)
+    _sync(dev)
+    step_counts = read_counts(KERNELS + BWD_KERNELS)
+    for k in counts:
+        counts[k] += step_counts[k]
+    log(f"  12d {arch} (d_model 512, 8 heads of 64, "
+        f"{cfg.enc_layers + cfg.n_layers} layers): loss kernels {loss_k:.6f} / plain {loss_p:.6f}, worst "
+        f"leaf {worst} {rel[worst]:.4f} (bound {bound * GRAD_TOL}); "
+        f"{len(flips)} rows with a routing flip masked; step loss "
+        f"{float(loss):.4f}, grad_norm {float(mx['grad_norm']):.4f}; "
+        f"launches {counts}")
+    if not (rel[worst] <= bound * GRAD_TOL
+            and abs(loss_k - loss_p) <= bound * 5e-3
+            and torch.isfinite(loss) and torch.isfinite(mx["grad_norm"])):
+        raise AssertionError(f"12d {arch}: {worst} {rel[worst]:.4f}, loss "
+                             f"{loss_k} vs {loss_p}, step {float(loss)}")
+    attn = cfg.enc_layers or any(k.startswith("attn")
+                                 for k in layer_kinds(cfg))
+    if dev.type == "cuda" and not (
+            counts["rmsnorm"] and counts["rmsnorm_bwd"] and (not attn or (
+                counts["flash_attention"] and counts["flash_attention_bwd"]))):
+        raise AssertionError(f"12d {arch}: a kernel of the path did not "
+                             f"launch: {counts}")
+    del params, opt, gk, gp
+    _empty_cache(dev)
+    return dict(arch=arch, loss_kernels=loss_k, loss_plain=loss_p,
+                worst_leaf=worst, worst_rel=rel[worst], bound=bound,
+                flipped_rows=len(flips), step_loss=float(loss),
+                grad_norm=float(mx["grad_norm"]), launches=counts)
+
+
+def train_launcher(dev, steps=3, timeout=300):
+    """Phase 12e: ``python -m repro_torch.launch.train --arch granite-3-2b
+    --scale reduced`` (on the card d_model 512 in heads of 64) for
+    ``steps`` steps at (2, 256), checkpoints in a temporary directory:
+    exit 0 and the launcher's ``[train] done`` line."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "granite-3-2b", "--scale", "reduced", "--steps", str(steps),
+             "--batch", "2", "--seq", "256", "--ckpt", tmp, "--device",
+             dev.type], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=timeout)
+    wall = time.perf_counter() - t0
+    done = [ln for ln in r.stdout.splitlines()
+            if ln.startswith(f"[train] done: final step {steps},")]
+    if r.returncode or not done:
+        raise AssertionError(f"launch.train exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    log(f"phase 12e: launch.train --arch granite-3-2b --scale reduced "
+        f"--steps {steps} --batch 2 --seq 256: exit 0 in {wall:.1f} s (host "
+        f"clock, process start included): {done[0]}")
+    return dict(wall_s=wall, done=done[0])
+
+
+def training_path(dev):
+    """Phase 12: (a) granite-3-2b at full size, (b) kernels against plain
+    at depth 2, (c) resume through the loop bitwise, (d) one step of each
+    other family, (e) the launcher."""
+    t0 = time.perf_counter()
+    full = train_full(dev)
+    vs_plain = train_kernels_vs_plain(dev)
+    resume = train_resume(dev)
+    fams = [train_family(dev, a) for a in TRAIN_FAMILIES]
+    cli = train_launcher(dev)
+    launches = {k: full["launches"][k] + vs_plain["launches"][k]
+                + resume["launches"][k] + sum(f["launches"][k] for f in fams)
+                for k in KERNELS[2:] + BWD_KERNELS}
+    wall = time.perf_counter() - t0
+    log(f"phase 12 (LM training path): {wall:.1f} s, main-path launches "
+        f"{launches}")
+    return dict(full=full, kernels_vs_plain=vs_plain, resume=resume,
+                families=fams, launcher=cli, launches=launches,
+                variants=full["variants"], wall_s=wall)
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3580,13 +4182,13 @@ def main() -> int:
         f"(CUDA {torch.version.cuda}), "
         f"nvcc {nvcc.stdout.strip().splitlines()[-1]}")
     t0 = time.perf_counter()
-    libs = _build.build(KERNELS)     # one nvcc per source, all at once
-    for name in KERNELS:
+    libs = _build.build(KERNELS + BWD_KERNELS)   # one nvcc a source, at once
+    for name in KERNELS + BWD_KERNELS:
         _build.load(name)
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f} s; SASS and ptxas per instance:")
     sass, ptxas = compiled_checks(libs, _build.build_logs)
-    for name in ("trsm", "rmsnorm"):
+    for name in ("trsm", "rmsnorm") + BWD_KERNELS:
         for k, v in ptxas.get(name, {}).items():
             log(f"  {name} {k}: ptxas {v.get('registers')} registers, "
                 f"spills {v.get('spill_stores')}/{v.get('spill_loads')} B")
@@ -3597,6 +4199,8 @@ def main() -> int:
     # profiler still traces them (see lm_path)
     lm_rows = rmsnorm_checks(dev, LM_RMS_SHAPES) + flash_checks(
         dev, LM_FLASH_SHAPES)
+    # phase 2c: the backward kernels and the forward's lse output
+    bwd_rows = backward_checks(dev)
     # phase 3, then 3b (the other executors) and 3d (each executor's
     # solve as a CUDA-graph replay) on each setting's prepared values, 3c
     # (the per-round replay) and 5a (the server) on the FEM setting
@@ -3629,10 +4233,11 @@ def main() -> int:
     bench = bench_path(dev)
     lm = lm_path(dev)
     fam = families_path(dev)
-    for r in rows + new_rows + lm_rows:  # ptxas's report of each instance
+    train = training_path(dev)
+    for r in rows + new_rows + lm_rows + bwd_rows:  # ptxas of each instance
         if "symbol" in r:
-            lib = next(n for n in KERNELS
-                       if r["symbol"].startswith(n.split("_")[0]))
+            lib = r.get("kernel_lib") or next(
+                n for n in KERNELS if r["symbol"].startswith(n.split("_")[0]))
             r["ptxas"] = ptxas.get(lib, {}).get(r["symbol"])
 
     head = next(r for r in rows if r["setting"] == "fem"
@@ -3683,15 +4288,22 @@ def main() -> int:
         "trsm": serial["backends"]["cuda"]["launches"]["trsm"]
         + ops["launches"]["trsm"],
         "rmsnorm": ops["launches"]["rmsnorm"] + lm["launches"]["rmsnorm"]
-        + fam["launches"]["rmsnorm"],
+        + fam["launches"]["rmsnorm"] + train["launches"]["rmsnorm"],
         "flash_attention": ops["launches"]["flash_attention"]
         + lm["launches"]["flash_attention"]
-        + fam["launches"]["flash_attention"],
+        + fam["launches"]["flash_attention"]
+        + train["launches"]["flash_attention"],
+        "rmsnorm_bwd": train["launches"]["rmsnorm_bwd"],
+        "flash_attention_bwd": train["launches"]["flash_attention_bwd"],
     }
+    # the backward kernels have no TPU kernel: they take the place of the
+    # JAX package's autodiff of the jnp functions named
     replaces = {"block_gemm": "src/repro/kernels/block_gemm.py:43",
                 "trsm": "src/repro/kernels/trsm.py:37",
                 "rmsnorm": "src/repro/kernels/rmsnorm.py:22",
-                "flash_attention": "src/repro/kernels/flash_attention.py:66"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:66",
+                "rmsnorm_bwd": "src/repro/models/layers.py:20",
+                "flash_attention_bwd": "src/repro/models/attention.py:70"}
     kernels = [{
         "name": "block_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_gemm.cu",
@@ -3720,6 +4332,23 @@ def main() -> int:
                      + ("" if causal is None else f" causal={causal}"),
             "variant": r["variant"], "tile": r["tile"],
             "variants": variants[name], "ptxas": r.get("ptxas")})
+    bwd_heads = {"rmsnorm_bwd": "8192x2048",
+                 "flash_attention_bwd": "2x4096x32x64"}
+    for name, shape in bwd_heads.items():
+        r = next(r for r in bwd_rows if r["kernel"] == name
+                 and r["shape"] == shape and r["dtype"] == "bfloat16"
+                 and r.get("causal") in (None, True))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"], "shape": f"{shape} bfloat16"
+            + (" causal=True" if name == "flash_attention_bwd" else ""),
+            "variant": r["variant"], "tile": r["tile"],
+            "variants": train["variants"][name], "ptxas": r.get("ptxas")})
     wall_s = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
@@ -3728,7 +4357,8 @@ def main() -> int:
          "main_path": settings, "lint_negative": lint_neg,
          "serial": serial, "serve": serve,
          "ops_path": ops, "bench": bench, "lm": lm, "lm_families": fam,
-         "lm_kernel_rows": lm_rows,
+         "lm_kernel_rows": lm_rows, "backward_rows": bwd_rows,
+         "training": train,
          "sass": sass, "ptxas": ptxas, "kernels": kernels}, indent=1,
         default=str))
     log(f"total wall {wall_s:.1f} s (host clock, build included)")

@@ -103,9 +103,9 @@ constexpr size_t smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int S, int H,
-             Strides sq, Strides sk, Strides sv, Strides so, float scale,
-             int causal) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int S, int H, Strides sq, Strides sk,
+             Strides sv, Strides so, float scale, int causal) {
   constexpr int LDQ = HD + 1;
   constexpr int DJ = HD / 8;                 // accumulator columns per lane
   extern __shared__ __align__(16) float smem[];
@@ -231,22 +231,23 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j) from_f(ob + sr * so.s + cg + 8 * j, acc[i][j] / den);
+    if (lse != nullptr && cg == 0) lse[(long long)bh * S + sr] = m[i] + logf(den);
   }
 }
 
 
 template <int HD>
-int launch(const float* q, const float* k, const float* v, float* o, int B,
-           int S, int H, const Strides* st, float scale, int causal,
-           cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int B, int S, int H, const Strides* st, float scale,
+           int causal, cudaStream_t stream) {
   const size_t smem = smem_floats<HD>() * sizeof(float);
   auto kern = flash_kernel<float, HD>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((S + BQ - 1) / BQ, B * H);
-  kern<<<grid, NT, smem, stream>>>(q, k, v, o, S, H, st[0], st[1], st[2],
-                                   st[3], scale, causal);
+  kern<<<grid, NT, smem, stream>>>(q, k, v, o, lse, S, H, st[0], st[1],
+                                   st[2], st[3], scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -339,9 +340,10 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 template <int HD, bool ASYNC>
 __global__ void __launch_bounds__(NT)
 flash_hmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int S,
-                  int H, Strides sq, Strides sk, Strides sv, Strides so,
-                  float scale, int causal) {
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int S, int H, Strides sq,
+                  Strides sk, Strides sv, Strides so, float scale,
+                  int causal) {
   using L = Layout<HD>;
   constexpr int LD = L::LD;
   constexpr int KD = HD / 16;                // k16 steps of Q K^T
@@ -491,12 +493,15 @@ flash_hmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int d = 0; d < DT; ++d)
       *reinterpret_cast<__nv_bfloat162*>(orow + d * 8) =
           __floats2bfloat162_rn(acc[d][2 * r] / den, acc[d][2 * r + 1] / den);
+    // m is in base-2 units of the scaled score: lse = (m + log2 l) ln 2
+    if (lse != nullptr && t == 0)
+      lse[(long long)bh * S + row] = (m[r] + log2f(den)) * 0.6931471805599453f;
   }
 }
 
 template <int HD, bool ASYNC>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
-           int S, int H, const Strides* st, float scale, int causal,
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+           int B, int S, int H, const Strides* st, float scale, int causal,
            cudaStream_t stream) {
   const size_t smem = Layout<HD>::bytes;
   auto kern = flash_hmma_kernel<HD, ASYNC>;
@@ -504,8 +509,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(B * H, (S + BQ - 1) / BQ);
-  kern<<<grid, NT, smem, stream>>>(q, k, v, o, S, H, st[0], st[1], st[2],
-                                   st[3], scale, causal);
+  kern<<<grid, NT, smem, stream>>>(q, k, v, o, lse, S, H, st[0], st[1],
+                                   st[2], st[3], scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -528,18 +533,19 @@ extern "C" int flash_attention_launch(int dtype, int variant, const void* q,
                                       const void* k, const void* v, void* o,
                                       int B, int S, int H, int hd,
                                       const long long* strides, float scale,
-                                      int causal, void* stream) {
+                                      int causal, void* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides st[4] = {{strides[0], strides[1], strides[2]},
                          {strides[3], strides[4], strides[5]},
                          {strides[6], strides[7], strides[8]},
                          {strides[9], strides[10], strides[11]}};
+  float* fl = static_cast<float*>(lse);
   if (dtype == 0 && variant == 0) {
     const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
                 *fv = static_cast<const float*>(v);
     float* fo = static_cast<float*>(o);
-    if (hd == 64) return fma::launch<64>(fq, fk, fv, fo, B, S, H, st, scale, causal, s);
-    if (hd == 128) return fma::launch<128>(fq, fk, fv, fo, B, S, H, st, scale, causal, s);
+    if (hd == 64) return fma::launch<64>(fq, fk, fv, fo, fl, B, S, H, st, scale, causal, s);
+    if (hd == 128) return fma::launch<128>(fq, fk, fv, fo, fl, B, S, H, st, scale, causal, s);
     return 1000;
   }
   if (dtype != 1 || (variant != 1 && variant != 2)) return 1000;
@@ -551,11 +557,11 @@ extern "C" int flash_attention_launch(int dtype, int variant, const void* q,
     if (!(hmma::aligned(q, st[0]) && hmma::aligned(k, st[1]) &&
           hmma::aligned(v, st[2])))
       return 1001;
-    if (hd == 64) return hmma::launch<64, true>(bq, bk, bv, bo, B, S, H, st, scale, causal, s);
-    if (hd == 128) return hmma::launch<128, true>(bq, bk, bv, bo, B, S, H, st, scale, causal, s);
+    if (hd == 64) return hmma::launch<64, true>(bq, bk, bv, bo, fl, B, S, H, st, scale, causal, s);
+    if (hd == 128) return hmma::launch<128, true>(bq, bk, bv, bo, fl, B, S, H, st, scale, causal, s);
     return 1000;
   }
-  if (hd == 64) return hmma::launch<64, false>(bq, bk, bv, bo, B, S, H, st, scale, causal, s);
-  if (hd == 128) return hmma::launch<128, false>(bq, bk, bv, bo, B, S, H, st, scale, causal, s);
+  if (hd == 64) return hmma::launch<64, false>(bq, bk, bv, bo, fl, B, S, H, st, scale, causal, s);
+  if (hd == 128) return hmma::launch<128, false>(bq, bk, bv, bo, fl, B, S, H, st, scale, causal, s);
   return 1000;
 }

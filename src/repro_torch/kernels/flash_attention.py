@@ -111,16 +111,18 @@ def _kernel():
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p]
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
     return _fn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, lse: bool = False):
     """q/k/v: (B, S, H, hd) with the same H (repeat GQA heads outside).
-    Returns (B, S, H, hd) in q's dtype."""
+    Returns (B, S, H, hd) in q's dtype; with ``lse`` also each row's f32
+    log-sum-exp of its scaled scores, (B, H, S) — the backward's input —
+    the output being the same bits either way."""
     global launches
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention takes q, k, v of one shape "
@@ -131,7 +133,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v lie on different devices")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
+        return flash_attention_plain(q, k, v, causal, lse=lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, got "
                          f"{q.device}")
@@ -144,6 +146,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if p.grid[1] > 65535:
         raise ValueError(f"grid {p.grid} exceeds the grid's y limit 65535")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse_t = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+             if lse else None)
     if B and S and H:
         st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
         arr = (ctypes.c_longlong * 12)(*st)
@@ -152,11 +156,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             err = _kernel()(SUPPORTED[q.dtype], VARIANTS[p.variant],
                             q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             out.data_ptr(), B, S, H, hd, arr, hd ** -0.5,
-                            int(causal), stream)
+                            int(causal),
+                            None if lse_t is None else lse_t.data_ptr(),
+                            stream)
         if err != 0:
             raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                                f"error {err} (B={B}, S={S}, H={H}, hd={hd}, "
                                f"{q.dtype}, {p.variant})")
         launches += 1
         plans[p.variant] += 1
-    return out
+    return (out, lse_t) if lse else out

@@ -24,12 +24,14 @@ from torch import nn
 
 from . import attention as attn_mod
 from .attention import Attention
-from .layers import MLP, Embed, Linear, RMSNorm, embed, linear, mlp, rmsnorm
+from .layers import (MLP, Embed, Linear, RMSNorm, cross_entropy, embed,
+                     linear, mlp, rmsnorm)
 from .sharding_hooks import constrain
-from .transformer import COMPUTE_DTYPE, param_dtype_of
+from .transformer import (COMPUTE_DTYPE, param_dtype_of, remat_active,
+                          run_remat)
 
-__all__ = ["EncDec", "encode", "encdec_forward", "encdec_cache_spec",
-           "encdec_init_cache", "encdec_decode_step"]
+__all__ = ["EncDec", "encode", "encdec_forward", "encdec_loss",
+           "encdec_cache_spec", "encdec_init_cache", "encdec_decode_step"]
 
 
 class EncBlock(nn.Module):
@@ -86,12 +88,28 @@ def encode(p: EncDec, cfg, frames: torch.Tensor) -> torch.Tensor:
     B, S, _ = frames.shape
     positions = _positions(B, S, frames.device)
     h = constrain(frames, "hidden")
+    remat = remat_active(cfg, p)
     for bp in p.enc:
-        x = rmsnorm(bp.norm1, h, cfg.norm_eps)
-        h = h + attn_mod.attention(bp.attn, cfg, x, positions, causal=False)
-        x = rmsnorm(bp.norm2, h, cfg.norm_eps)
-        h = constrain(h + mlp(bp.ffn, x, cfg.act), "hidden")
+        h = (run_remat(_enc_block, bp, cfg, h, positions) if remat
+             else _enc_block(bp, cfg, h, positions))
     return rmsnorm(p.norm_enc, h, cfg.norm_eps)
+
+
+def _enc_block(bp: EncBlock, cfg, h, positions):
+    x = rmsnorm(bp.norm1, h, cfg.norm_eps)
+    h = h + attn_mod.attention(bp.attn, cfg, x, positions, causal=False)
+    x = rmsnorm(bp.norm2, h, cfg.norm_eps)
+    return constrain(h + mlp(bp.ffn, x, cfg.act), "hidden")
+
+
+def _dec_block(bp: DecBlock, cfg, h, positions, memory):
+    x = rmsnorm(bp.norm1, h, cfg.norm_eps)
+    h = h + attn_mod.attention(bp.self, cfg, x, positions)
+    x = rmsnorm(bp.normx, h, cfg.norm_eps)
+    h = h + attn_mod.attention(bp.cross, cfg, x, positions,
+                               kv_override=_cross_kv(bp, cfg, memory))
+    x = rmsnorm(bp.norm2, h, cfg.norm_eps)
+    return constrain(h + mlp(bp.ffn, x, cfg.act), "hidden")
 
 
 def _cross_kv(bp: DecBlock, cfg, memory: torch.Tensor):
@@ -114,18 +132,22 @@ def encdec_forward(p: EncDec, cfg, tokens: torch.Tensor,
     h = embed(p.embed, tokens, COMPUTE_DTYPE)
     B, S, _ = h.shape
     positions = _positions(B, S, h.device)
+    remat = remat_active(cfg, p)
     for bp in p.dec:
-        x = rmsnorm(bp.norm1, h, cfg.norm_eps)
-        h = h + attn_mod.attention(bp.self, cfg, x, positions)
-        x = rmsnorm(bp.normx, h, cfg.norm_eps)
-        h = h + attn_mod.attention(bp.cross, cfg, x, positions,
-                                   kv_override=_cross_kv(bp, cfg, memory))
-        x = rmsnorm(bp.norm2, h, cfg.norm_eps)
-        h = constrain(h + mlp(bp.ffn, x, cfg.act), "hidden")
+        h = (run_remat(_dec_block, bp, cfg, h, positions, memory) if remat
+             else _dec_block(bp, cfg, h, positions, memory))
     if last_only:
         h = h[:, -1:]
     h = constrain(rmsnorm(p.norm_f, h, cfg.norm_eps), "pre_logits")
     return constrain(linear(p.unembed, h), "logits")
+
+
+def encdec_loss(p: EncDec, cfg, batch: Dict) -> torch.Tensor:
+    """Token-mean cross entropy of the decoder's logits
+    (``encdec.py:115-117``); the batch's entries are tensors on the
+    model's device."""
+    logits = encdec_forward(p, cfg, batch["tokens"], batch["frontend"])
+    return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
 
 
 # -- decode -------------------------------------------------------------------

@@ -1,14 +1,15 @@
 """Model registry — the port of ``repro/models/registry.py``: one uniform
-set of entry points (init, prefill, decode) per config, so the launcher
-and the serving engine treat every arch alike.
+set of entry points (init, loss, prefill, decode) per config, so the
+launchers and the serving engine treat every arch alike.
 
 Every family serves: the decoder-only configs through
 :mod:`.transformer` (parameters an :class:`~.transformer.LM`), the
 encoder-decoder through :mod:`.encdec` (an :class:`~.encdec.EncDec`,
 whose cache comes from ``encdec_init_cache`` with the encoder's frames —
 :meth:`ModelAPI.init_cache` raises for it, as the JAX one does).
-``loss`` waits for the training slice. Entry points run on the card
-unless given ``device="cpu"``."""
+:meth:`ModelAPI.loss` is differentiable: take it on
+:meth:`ModelAPI.train_params` of the parameters :meth:`ModelAPI.init`
+makes. Entry points run on the card unless given ``device="cpu"``."""
 from __future__ import annotations
 
 from typing import Dict
@@ -20,9 +21,6 @@ from . import encdec as encdec_mod
 from . import transformer as tfm
 
 __all__ = ["ModelAPI", "get_model"]
-
-_TRAINING = "ROADMAP Queue 1, item 5 (training)"
-
 
 def _device_of(params) -> torch.device:
     return params.embed.table.device
@@ -43,7 +41,8 @@ class ModelAPI:
         """Seeded parameters in the config's ``param_dtype`` on
         ``device`` (``transformer.init_weights``): ``generator`` is a
         ``torch.Generator`` on that device or an int seed. ``ServeEngine``
-        serves :meth:`serving_params` of them."""
+        serves :meth:`serving_params` of them; training takes
+        :meth:`train_params` of them."""
         dev = resolve_device(device)
         if isinstance(generator, int):
             generator = torch.Generator(device=dev).manual_seed(generator)
@@ -58,11 +57,22 @@ class ModelAPI:
     def serving_params(self, params):
         return tfm.serving_params(params)
 
+    def train_params(self, params):
+        """``params`` with every parameter needing a gradient (in
+        place)."""
+        return tfm.train_params(params)
+
     # -- training ------------------------------------------------------------
-    def loss(self, params, batch: Dict):
-        raise NotImplementedError(
-            f"the LM loss and its backward pass come with the training "
-            f"slice; {_TRAINING}")
+    def loss(self, params, batch: Dict) -> torch.Tensor:
+        """The training loss of ``batch`` (tokens, labels, and where the
+        config has them loss_mask and frontend; numpy or tensors): token-
+        mean cross entropy, plus 0.01 × the MoE Switch loss for the
+        decoder-only families."""
+        dev = _device_of(params)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if self.is_encdec:
+            return encdec_mod.encdec_loss(params, self.cfg, b)
+        return tfm.lm_loss(params, self.cfg, b)
 
     # -- prefill (forward, last-position logits) ----------------------------
     def prefill(self, params, batch: Dict) -> torch.Tensor:

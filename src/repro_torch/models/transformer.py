@@ -24,24 +24,26 @@ JAX package uses in f32 (:data:`F32_PARAMS`: the MoE router, mamba's
 ``A_log`` and ``dt_bias``), which every model holds in f32."""
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from . import xlstm as xlstm_mod
 from .attention import Attention
-from .layers import (MLP, Embed, Linear, RMSNorm, embed, init_normal_,
-                     linear, mlp, rmsnorm)
+from .layers import (MLP, Embed, Linear, RMSNorm, cross_entropy, embed,
+                     init_normal_, linear, mlp, rmsnorm)
 from .sharding_hooks import constrain
 
 __all__ = ["COMPUTE_DTYPE", "F32_PARAMS", "LM", "Block", "layer_kinds",
            "param_dtype_of", "init_weights",
-           "serving_params", "lm_forward", "block_forward", "block_decode",
-           "cache_spec", "cache_dtype", "init_cache", "lm_decode_step"]
+           "serving_params", "train_params", "remat_active", "lm_forward",
+           "lm_loss", "block_forward", "block_decode", "cache_spec",
+           "cache_dtype", "init_cache", "lm_decode_step"]
 
 #: every activation, the KV cache and the served weights
 COMPUTE_DTYPE = torch.bfloat16
@@ -185,6 +187,33 @@ def serving_params(p: nn.Module) -> nn.Module:
     return out
 
 
+def train_params(p: nn.Module) -> nn.Module:
+    """``p`` with every parameter set to need a gradient (in place): the
+    trainable model. The parameters are made without one, so the serving
+    path records no autograd graph; :func:`serving_params` makes its own
+    copy, which never needs one."""
+    for w in p.parameters():
+        w.requires_grad_(True)
+    return p
+
+
+def remat_active(cfg, module: nn.Module) -> bool:
+    """Whether a forward of ``module`` rematerialises each layer group
+    (``cfg.remat == "block"``, as ``jax.checkpoint`` of the group body in
+    the JAX package): only when a gradient will be taken, so serving and
+    ``torch.no_grad`` forwards run as before."""
+    return (cfg.remat == "block" and torch.is_grad_enabled()
+            and any(w.requires_grad for w in module.parameters()))
+
+
+def run_remat(fn, *args):
+    """``fn(*args)`` with its activations dropped after the forward and
+    recomputed in the backward (``torch.utils.checkpoint``, non-reentrant;
+    no op of a forward draws random numbers)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -272,14 +301,42 @@ def lm_forward(p: LM, cfg, tokens: torch.Tensor,
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     h = constrain(h, "hidden")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for blk in p.blocks:
-        h, a = block_forward(blk, cfg, h, positions)
-        aux = aux + a
+    if remat_active(cfg, p):
+        # one checkpoint a layer group, its aux summed inside the group
+        # and added to the carry after it (``transformer.py:216-231``)
+        g = cfg.layer_group
+        for i in range(0, len(p.blocks), g):
+            h, a = run_remat(_group_forward, p.blocks[i:i + g], cfg, h,
+                             positions)
+            aux = aux + a
+    else:
+        for blk in p.blocks:
+            h, a = block_forward(blk, cfg, h, positions)
+            aux = aux + a
     if frontend is not None:
         h = h[:, frontend.shape[1]:]
     if last_only:
         h = h[:, -1:]
     return _logits(p, cfg, h), aux
+
+
+def _group_forward(blocks, cfg, h, positions):
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for blk in blocks:
+        h, a = block_forward(blk, cfg, h, positions)
+        aux = aux + a
+    return h, aux
+
+
+def lm_loss(p: LM, cfg, batch: Dict) -> torch.Tensor:
+    """Token-mean cross entropy over ``batch["labels"]`` (masked by
+    ``loss_mask`` when given) plus 0.01 × the MoE Switch loss
+    (``transformer.py:243-251``); the batch's entries are tensors on the
+    model's device."""
+    logits, aux = lm_forward(p, cfg, batch["tokens"],
+                             frontend=batch.get("frontend"))
+    return cross_entropy(logits, batch["labels"],
+                         batch.get("loss_mask")) + 0.01 * aux
 
 
 # -- decode -------------------------------------------------------------------

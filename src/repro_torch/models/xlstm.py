@@ -98,7 +98,8 @@ def _mlstm_chunk_scan(q, k, v, log_i, log_f, chunk: int):
 
 def _gates(p: MLSTM, cfg, x):
     """q, k, v, log_i, log_f in f32 (``xlstm.py:95-105``): log σ(f), and
-    ``i_raw`` less its max over the whole tensor."""
+    ``i_raw`` less its max over the whole tensor, the max taken without
+    gradient (``lax.stop_gradient`` there)."""
     B, S, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
     f32 = torch.float32
@@ -108,7 +109,7 @@ def _gates(p: MLSTM, cfg, x):
     i_raw = linear(p.wi, x).to(f32)                           # (B,S,H)
     f_raw = linear(p.wf, x).to(f32)
     log_f = -F.softplus(-f_raw)                               # log σ(f)
-    log_i = i_raw - i_raw.max()                               # exp gate ≤ 1
+    log_i = i_raw - i_raw.max().detach()                      # exp gate ≤ 1
     return q, k, v, log_i, log_f
 
 

@@ -14,7 +14,11 @@ width (2 layers): prefill against teacher-forced decode, the kernel
 route against the plain route, and the launches of each; and the MoE,
 jamba, xLSTM and enc-dec families at full width, depth cut: the kernel
 route against the plain route, their launches, MoE served tokens
-repeated bitwise, and the f32 weights of the serving model.
+repeated bitwise, and the f32 weights of the serving model; and the
+training path's backward kernels (RMSNorm, flash attention on both its
+routes) against their plain versions, bitwise repeatable, the flash
+forward's output unchanged by its log-sum-exp output, and the autograd
+functions launching the backward kernels.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one, save the check that ``ModelAPI.init(device="cuda")`` raises on a
@@ -1054,3 +1058,170 @@ def test_serving_params_keep_the_f32_weights_on_the_card(cuda_device):
             assert w.dtype == torch.bfloat16, name
     assert kept == {"w", "A_log", "dt_bias"}
     assert api.serving_params(params) is params
+
+
+# ---- the backward kernels (training) ----------------------------------------
+
+def _bwd_close(got, ref, dtype, what):
+    """f32: |Δ| ≤ 1e-4 · max|plain| (sums over up to S terms in another
+    order); bf16: |Δ| ≤ 1e-2 · |plain| + 1e-3 · max|plain| (one bf16
+    rounding of f32 values that differ in that order)."""
+    got, ref = got.double(), ref.double()
+    top = ref.abs().max().item()
+    assert torch.isfinite(got).all(), what
+    if dtype == torch.bfloat16:
+        bad = (got - ref).abs() > 1e-2 * ref.abs() + 1e-3 * top
+        assert not bad.any(), f"{what}: {int(bad.sum())} elements"
+    else:
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-4 * top, f"{what}: {err:.3e} vs {top:.3e}"
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(2, 256, 4, 64), (1, 200, 2, 128),
+                                      (1, 333, 3, 64), (1, 1024, 4, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain(cuda_device, B, S, H, hd, causal,
+                                        dtype):
+    """The backward kernel against its plain version on the same forward
+    output and log-sum-exp (S = 200 and 333 leave ragged tiles); q, k, v
+    strided views of one packed tensor; one launch a call; bitwise
+    repeatable (no atomics)."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+    g = torch.Generator(device=cuda_device).manual_seed(S + hd)
+    qkv = torch.randn(B, S, 3, H, hd, device=cuda_device,
+                      generator=g).to(dtype)
+    q, k, v = qkv.unbind(2)
+    dout = torch.randn(B, S, H, hd, device=cuda_device,
+                       generator=g).to(dtype)
+    out, lse = fa.flash_attention(q, k, v, causal, lse=True)
+    _, plse = fa.flash_attention_plain(q, k, v, causal, lse=True)
+    assert (lse - plse).abs().max().item() <= 1e-4 * max(
+        1.0, plse.abs().max().item())
+    before = fb.launches
+    got = fb.flash_attention_bwd(q, k, v, out, dout, lse, causal)
+    torch.cuda.synchronize()
+    assert fb.launches == before + 1
+    ref = fb.flash_attention_bwd_plain(q, k, v, out, dout, lse, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        _bwd_close(a, b, dtype, f"{name} {B}x{S}x{H}x{hd} {causal}")
+    again = fb.flash_attention_bwd(q, k, v, out, dout, lse, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("variant", ["fma_f32", "hmma_cpasync",
+                                     "hmma_guarded"])
+def test_flash_lse_output_leaves_the_output_bitwise(cuda_device, causal, hd,
+                                                    variant):
+    """With the log-sum-exp output on, every variant's output is bitwise
+    the same as with it off."""
+    B, S, H = 2, 200, 3
+    dtype = torch.float32 if variant == "fma_f32" else torch.bfloat16
+    g = torch.Generator(device=cuda_device).manual_seed(hd)
+    q, k, v = (torch.randn(B, S, H, hd, device=cuda_device, generator=g
+                           ).to(dtype) for _ in range(3))
+    if variant == "hmma_guarded":
+        q, k, v = (_misaligned(t) for t in (q, k, v))
+    assert fa.plan(B, S, H, hd, dtype, causal,
+                   [t.stride()[:3] for t in (q, k, v)],
+                   [t.data_ptr() for t in (q, k, v)]).variant == variant
+    off = fa.flash_attention(q, k, v, causal)
+    on, lse = fa.flash_attention(q, k, v, causal, lse=True)
+    assert torch.equal(on, off) and lse.shape == (B, H, S)
+    _, plse = fa.flash_attention_plain(q, k, v, causal, lse=True)
+    assert (lse - plse).abs().max().item() <= 1e-4 * max(
+        1.0, plse.abs().max().item())
+
+
+@pytest.mark.parametrize("rows,d", [(8192, 2048), (100, 512), (7, 1001),
+                                    (4096, 128), (300, 64), (33, 6144),
+                                    (5, 8192)])
+@pytest.mark.parametrize("stype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, rows, d, stype,
+                                          dtype):
+    """dx against the plain version (f32: 1e-5 · max|plain|; bf16: one
+    rounding, rtol 1e-2, atol 1e-3 · max|plain|), ds (f32) within 1e-5 of
+    the column's Σ|dy·x·r|; one launch a call; bitwise repeatable."""
+    from repro_torch.kernels import rmsnorm_bwd as rb
+    g = torch.Generator(device=cuda_device).manual_seed(rows + d)
+    x = torch.randn(rows, d, device=cuda_device, generator=g).to(dtype)
+    dy = torch.randn(rows, d, device=cuda_device, generator=g).to(dtype)
+    s = torch.randn(d, device=cuda_device, generator=g).to(stype)
+    before = rb.launches
+    dx, ds = rb.rmsnorm_bwd(x, s, dy)
+    torch.cuda.synchronize()
+    assert rb.launches == before + 1 and ds.dtype == torch.float32
+    pdx, pds = rb.rmsnorm_bwd_plain(x, s, dy)
+    top = pdx.double().abs().max().item()
+    err = (dx.double() - pdx.double()).abs()
+    if dtype == torch.bfloat16:
+        assert (err <= 1e-2 * pdx.double().abs() + 1e-3 * top).all()
+    else:
+        assert err.max().item() <= 1e-5 * top
+    xf = x.double()
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-5)
+    mag = (dy.double() * xf * r).abs().sum(0)
+    assert ((ds.double() - pds.double()).abs() <= 1e-5 * mag + 1e-30).all()
+    dx2, ds2 = rb.rmsnorm_bwd(x, s, dy)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_autograd_functions_launch_the_backward_kernels(cuda_device, dtype):
+    """``ops.rmsnorm`` and ``ops.flash_attention`` with inputs that need a
+    gradient run the forward kernel and, in the backward pass, the
+    backward kernel: the gradients are those of the backward wrappers."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm_bwd as rb
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(1, 130, 2, 64, device=cuda_device, generator=g
+                           ).to(dtype).requires_grad_() for _ in range(3))
+    x = torch.randn(40, 256, device=cuda_device, generator=g
+                    ).to(dtype).requires_grad_()
+    s = torch.randn(256, device=cuda_device, generator=g
+                    ).to(dtype).requires_grad_()
+    counts = (fa.launches, fb.launches, rk.launches, rb.launches)
+    out = ops.flash_attention(q, k, v, True)
+    y = ops.rmsnorm(x, s)
+    (out.float().square().sum() + y.float().square().sum()).backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fb.launches, rk.launches, rb.launches) == tuple(
+        c + 1 for c in counts)
+    with torch.no_grad():
+        o2, lse = fa.flash_attention(q, k, v, True, lse=True)
+        assert torch.equal(o2, out)
+        want = fb.flash_attention_bwd(q, k, v, out, (2 * out.float()).to(
+            dtype), lse, True)
+        assert all(torch.equal(a, b) for a, b in
+                   zip((q.grad, k.grad, v.grad), want))
+        dx, ds = rb.rmsnorm_bwd(x, s, (2 * y.float()).to(dtype))
+        assert torch.equal(x.grad, dx) and torch.equal(s.grad, ds.to(dtype))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_bf16_guarded_equals_cpasync(cuda_device, hd, causal):
+    """bf16 backward on the tensor cores: aligned operands take the
+    cp.async staging, misaligned copies the guarded element loads, with
+    the same bits; S = 200 leaves ragged key and q tiles."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+    B, S, H = 2, 200, 3
+    g = torch.Generator(device=cuda_device).manual_seed(hd + causal)
+    q, k, v, dout = (torch.randn(B, S, H, hd, device=cuda_device, generator=g
+                                 ).to(torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_attention(q, k, v, causal, lse=True)
+    before = dict(fb.plans)
+    got = fb.flash_attention_bwd(q, k, v, out, dout, lse, causal)
+    mis = [_misaligned(t) for t in (q, k, v, out, dout)]
+    again = fb.flash_attention_bwd(*mis, lse, causal)
+    torch.cuda.synchronize()
+    assert fb.plans["hmma_cpasync"] == before.get("hmma_cpasync", 0) + 1
+    assert fb.plans["hmma_guarded"] == before.get("hmma_guarded", 0) + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = fb.flash_attention_bwd_plain(q, k, v, out, dout, lse, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        _bwd_close(a, b, torch.bfloat16, f"{name} hd={hd} {causal}")

@@ -516,7 +516,7 @@ def test_kernel_counts_unmoved_on_the_cpu():
     assert trk.launches == 0 and tfa.launches == 0
 
 
-# -- every family builds; the loss still raises ------------------------------
+# -- every family builds; the loss and cross-attention run --------------------
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_unported_kinds_raise(arch):
@@ -538,12 +538,21 @@ def test_unported_kinds_raise(arch):
 
 
 def test_loss_and_cross_attention_raise():
-    """The loss still raises, naming the training slice; cross-attention
-    (``kv_override``), which raised before the enc-dec slice, now runs
+    """Named when the loss and cross-attention raised. The loss is ported
+    now: ``ModelAPI.loss`` equals the JAX ``api.loss`` on the same
+    parameters and batch within |Δ| ≤ 5e-3 (``tests/test_torch_train.py``
+    backs that tolerance, and holds every gradient); cross-attention
+    (``kv_override``), which raised before the enc-dec slice, runs
     (``tests/test_torch_models_families.py`` holds it against JAX)."""
-    cfg, _, _, api, tp = _pair("granite-3-2b")
-    with pytest.raises(NotImplementedError, match="training"):
-        api.loss(tp, {})
+    cfg, japi, jparams, api, tp = _pair("granite-3-2b")
+    toks = _tokens(cfg, 2, 12, 9)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1),
+             "loss_mask": np.ones(toks.shape, np.float32)}
+    want = float(japi.loss(jparams, {k: jnp.asarray(v)
+                                     for k, v in batch.items()}))
+    got = api.loss(tp, batch)
+    assert got.shape == () and got.dtype == torch.float32
+    assert abs(float(got) - want) <= 5e-3, (float(got), want)
     x = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16)
     kv = torch.zeros(1, 6, cfg.n_kv_heads, cfg.hd, dtype=torch.bfloat16)
     out = tattn.attention(tp.blocks[0].mixer, cfg, x,
