@@ -186,6 +186,24 @@ on the card:
    -m repro_torch.launch.train --arch granite-3-2b --scale reduced
    --steps 3 --batch 2 --seq 256`` with a temporary ``--ckpt``, exiting 0
    with its ``[train] done`` line;
+13. runs the mesh at world 1 — an NCCL group of this process alone,
+   the 1×1 ``("data", "model")`` mesh (``launch/mesh.py``): (a)
+   ``build_train_step(cfg, shape, mesh=)`` on granite-3-2b at full size,
+   DTensor parameters, AdamW moments and batch laid out by
+   ``runtime/sharding.py``, RMSNorm and flash forward and backward
+   reached through ``local_map`` on the local shards, 3 steps at 12a's
+   (2, 4096) from 12a's seed and batches: loss and grad_norm within 5e-3
+   and 0.15 relative of 12a's (whether bitwise printed), 12a's launches
+   a step, step ms, tokens/s, peak memory, and the step against
+   ``launch/roofline.py``'s chips-1 row (share of the bound, model-FLOP
+   share); (b) ``ServeEngine(mesh=)``: 10b's 16 requests, every token
+   equal to 10b's, step p50/p95; (c) ``python -m
+   repro_torch.launch.dryrun`` for granite train_4k and decode_32k on
+   the fake 16×16 mesh, on the host's CPU, started beside phase 12: ok,
+   FLOPs and collective bytes, the wall; (d) one NCCL rank process: ``ppermute``,
+   ``reduce_scatter``, ``all_gather`` of a CUDA tensor, exact, nothing
+   staged. No multi-rank mesh on the one card
+   (:data:`MULTIRANK_ON_ONE_CARD`, from :func:`gloo_cuda_probe`);
 9. writes every measured row to ``build/chip_smoke.json`` and prints the
    kernels' JSON line, the total wall time, the card line and, last, the
    result.
@@ -584,6 +602,7 @@ FLASH_SHAPES = [((1, 128, 2, 64), ("float32", "bfloat16")),
                 ((2, 256, 4, 64), ("float32", "bfloat16")),
                 ((1, 512, 1, 128), ("float32", "bfloat16")),
                 ((1, 4096, 64, 128), ("bfloat16",)),
+                ((2, 4096, 32, 64), ("bfloat16",)),
                 ((1, 1024, 64, 128), ("float32",))]
 
 
@@ -2595,8 +2614,9 @@ def serial_path(dev, blocks, max_supernode=96):
 def serial_trsm_stacks(dev, A, bs):
     """The serial path's trsm work as a whole: the stacked solves (one per
     supernode with a non-empty struct) recorded from one ``cuda``
-    factorize, then run back to back through the kernel and through
-    ``torch.linalg.solve_triangular`` (CUDA events, mean of 5 passes, and
+    factorize, then run back to back through the kernel, its plain
+    version and ``torch.linalg.solve_triangular`` (CUDA events, mean of 5
+    passes, and
     the profiler's device time), beside the bound summed over the
     stacks. These launches come after the path's counts were read."""
     import torch
@@ -2624,6 +2644,9 @@ def serial_trsm_stacks(dev, A, bs):
         return [torch.linalg.solve_triangular(u, b, upper=True, left=False)
                 for b, u in stacks]
 
+    def plain():
+        return [tk.trsm_plain(b, u) for b, u in stacks]
+
     err = max((x - y).abs().max().item()
               for x, y in zip(kernel(), library()))
     t_bytes = t_ops = bound = 0.0
@@ -2637,13 +2660,14 @@ def serial_trsm_stacks(dev, A, bs):
     out = dict(stacks=len(stacks), rows_min=min(rows), rows_max=max(rows),
                k=stacks[0][1].shape[0], ms=timed_ms(kernel),
                device_ms=device_ms(kernel), library_ms=timed_ms(library),
-               library_device_ms=device_ms(library), bound_ms=bound,
-               bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+               library_device_ms=device_ms(library), plain_ms=timed_ms(plain),
+               bound_ms=bound, bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
                max_abs_err_vs_library=err)
     log(f"serial trsm, all {len(stacks)} stacks ({min(rows)}-{max(rows)} "
         f"rows x {out['k']}, f64): kernel {out['ms']:.3f} ms (device "
         f"{out['device_ms']:.3f}), solve_triangular {out['library_ms']:.3f}"
-        f" ms (device {out['library_device_ms']:.3f}), bound {bound:.4f} ms "
+        f" ms (device {out['library_device_ms']:.3f}), plain "
+        f"{out['plain_ms']:.3f} ms, bound {bound:.4f} ms "
         f"(sum over the stacks; bytes {t_bytes:.4f}, operations "
         f"{t_ops:.4f}), max|Δ| vs the library {err:.2e}")
     return out
@@ -3109,6 +3133,18 @@ def _empty_cache(dev):
         torch.cuda.reset_peak_memory_stats()
 
 
+def lm_requests(cfg, serve=LM_SERVE):
+    """The served requests of phases 10b and 13b: prompts of 2–8 tokens
+    drawn with numpy seed 0."""
+    import numpy as np
+    from repro_torch.runtime import Request
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(
+                        1, cfg.vocab, rng.integers(2, 9)).tolist(),
+                    max_new=serve["max_new"])
+            for i in range(serve["requests"])]
+
+
 def lm_serve_path(dev, arch="granite-3-2b", serve=LM_SERVE,
                   cli_requests=4, timeout=300):
     """Phase 10b: ``ServeEngine`` on the full-size model — ``requests``
@@ -3120,21 +3156,16 @@ def lm_serve_path(dev, arch="granite-3-2b", serve=LM_SERVE,
     subprocess, which must exit 0 with every request completed."""
     import os
 
-    import numpy as np
     import torch
     from repro_torch.kernels import rmsnorm as rk
-    from repro_torch.runtime import Request, ServeEngine
+    from repro_torch.runtime import ServeEngine
 
     _empty_cache(dev)
     cfg, api, params, _, _ = _lm_model(dev, arch)
     per_step = (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
     eng = ServeEngine(api, params, batch_slots=serve["slots"],
                       max_seq=serve["max_seq"])
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(
-                        1, cfg.vocab, rng.integers(2, 9)).tolist(),
-                    max_new=serve["max_new"])
-            for i in range(serve["requests"])]
+    reqs = lm_requests(cfg, serve)
     for r in reqs:
         eng.submit(r)
 
@@ -3176,7 +3207,8 @@ def lm_serve_path(dev, arch="granite-3-2b", serve=LM_SERVE,
                wall_s=wall, tok_per_s=rate,
                step_ms_p50=p50, step_ms_p95=p95, trace=trace,
                peak_bytes=peak, launches=counts, launches_per_step=per_step,
-               rmsnorm_variants=rms_variants)
+               rmsnorm_variants=rms_variants,
+               served_tokens=[r.out for r in reqs])
     share = trace.get("busy_share")
     log(f"LM serve {arch} full size: {res['completed']}/{len(reqs)} "
         f"requests, {n_tok} tokens in {steps} steps; {n_tok - traced_tok} "
@@ -4155,6 +4187,382 @@ def training_path(dev):
                 variants=full["variants"], wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the mesh
+# ---------------------------------------------------------------------------
+
+#: the collectives DTensor issues (``torch.distributed``'s functional ones)
+GLOO_PROBE_OPS = ("all_gather_into_tensor", "reduce_scatter_tensor",
+                  "all_reduce", "all_to_all_single")
+
+
+def _gloo_probe_rank(rank, op):
+    """One rank of :func:`gloo_cuda_probe`: ``op`` over the gloo group on
+    a CUDA tensor of card 0, the way DTensor calls it."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    torch.cuda.set_device(0)
+    x = torch.arange(8, dtype=torch.float32, device="cuda") + 100 * rank
+    group = dist.group.WORLD
+    if op == "all_gather_into_tensor":
+        y = funcol.all_gather_tensor(x, 0, group)
+    elif op == "reduce_scatter_tensor":
+        y = funcol.reduce_scatter_tensor(x, "sum", 0, group)
+    elif op == "all_reduce":
+        y = funcol.all_reduce(x, "sum", group)
+    else:
+        y = funcol.all_to_all_single(x, None, None, group)
+    y = funcol.wait_tensor(y)
+    torch.cuda.synchronize()
+    return y.cpu().tolist()
+
+
+def _gloo_probe_expect(op):
+    a = [float(i) for i in range(8)]
+    b = [v + 100 for v in a]
+    if op == "all_gather_into_tensor":
+        return [a + b, a + b]
+    if op == "reduce_scatter_tensor":
+        s = [x + y for x, y in zip(a, b)]
+        return [s[:4], s[4:]]
+    if op == "all_reduce":
+        s = [x + y for x, y in zip(a, b)]
+        return [s, s]
+    return [a[:4] + b[:4], a[4:] + b[4:]]
+
+
+def gloo_cuda_probe(timeout=120):
+    """Whether gloo carries each collective DTensor issues
+    (:data:`GLOO_PROBE_OPS`) on CUDA tensors across two rank processes
+    on the one card: each op in its own pair of ranks (``comm.p2p.spawn``,
+    gloo), since a rank that gloo aborts ends its pair. Returns ``{op:
+    {"ok", "result" or "error"}}``. Not a phase: run alone with
+    ``python3 -c "import sys; sys.path[:0] = ['.', 'src']; import
+    chip_smoke as c; c.gloo_cuda_probe()"``; its result is
+    :data:`MULTIRANK_ON_ONE_CARD`."""
+    from repro_torch.comm import p2p
+    out = {}
+    for op in GLOO_PROBE_OPS:
+        t0 = time.perf_counter()
+        try:
+            res = p2p.spawn(_gloo_probe_rank, 2, op, timeout=timeout)
+            out[op] = dict(ok=res == _gloo_probe_expect(op), result=res)
+        except (RuntimeError, TimeoutError) as e:   # the probe's answer
+            out[op] = dict(ok=False, error=str(e)[-800:])
+        log(f"gloo on CUDA tensors, two ranks on one card, {op}: "
+            f"{'ok' if out[op]['ok'] else 'FAILS'} "
+            f"({time.perf_counter() - t0:.1f} s): "
+            f"{out[op].get('result', out[op].get('error'))}")
+    return out
+
+
+def nccl_transport_rank(rank, numel=1 << 20):
+    """Phase 13d, one NCCL rank (``comm.p2p.spawn(backend="nccl")``, world
+    1): ``ppermute`` (no pair at world 1: it moves nothing),
+    ``reduce_scatter`` and ``all_gather`` on a CUDA tensor straight
+    through NCCL — exact, nothing staged on the host."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.comm import p2p
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    x = torch.arange(numel, dtype=torch.float32, device="cuda")
+    p2p.LOG.clear()
+    y = p2p.ppermute(x, [])
+    rs = p2p.reduce_scatter(x)
+    ag = p2p.all_gather(x)
+    torch.cuda.synchronize()
+    return dict(ppermute_same=y is x, reduce_scatter_exact=bool(
+                    torch.equal(rs, x)), all_gather_exact=bool(
+                    torch.equal(ag, x)), rounds=p2p.LOG.rounds,
+                staged_bytes=p2p.LOG.staged_bytes,
+                entries=len(p2p.LOG.entries),
+                device=torch.cuda.get_device_name(rank))
+
+
+#: phase 13a: 12a's model, shape, seed and batches, three steps
+MESH_TRAIN_STEPS = 3
+#: phase 13c: the dry run's cells on the fake 16×16 production mesh
+MESH_DRYRUN_CELLS = (("granite-3-2b", "train_4k"),
+                     ("granite-3-2b", "decode_32k"))
+#: :func:`gloo_cuda_probe` on the H100 (PR 23; torch 2.11.0+cu128): gloo's
+#: all_gather_into_tensor of a CUDA tensor kills the rank (SIGSEGV), while
+#: reduce_scatter_tensor, all_reduce and all_to_all_single gave the right
+#: values. DTensor gathers every weight, so there is no multi-rank mesh on
+#: one card (no phase 13e); NCCL refuses two ranks on one card. Past world
+#: 1 the sharded steps wait for several cards.
+MULTIRANK_ON_ONE_CARD = False
+
+
+def _world_one(dev):
+    """An NCCL group of this process alone and its 1×1 mesh."""
+    import torch.distributed as dist
+    from repro_torch.comm.p2p import _free_port
+    from repro_torch.launch.mesh import mesh_from_arg
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0,
+                            device_id=dev)
+    return mesh_from_arg("1x1", "cuda")
+
+
+def mesh_train(dev, mesh, ref):
+    """Phase 13a: ``build_train_step(cfg, shape, mesh)`` on granite-3-2b
+    at full size over the 1×1 mesh — DTensor parameters, moments and
+    batch, the kernels reached through ``local_map`` on the local shards
+    — at 12a's (2, 4096) from 12a's seed and batches: each step's loss and
+    grad_norm against 12a's (loss 5e-3, grad norm 0.15 relative; whether
+    bitwise is printed), its launches against 12a's, step ms, tokens/s,
+    peak memory, and the step against ``launch/roofline.py``'s row at
+    chips = 1."""
+    import torch
+    from repro_torch.config import SHAPES, ShapeConfig, get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import roofline, steps
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+
+    _empty_cache(dev)
+    cfg = get_config("granite-3-2b")
+    B, S = TRAIN_SHAPE
+    base = SHAPES["train_4k"]
+    shape = ShapeConfig(base.name, S, B, base.mode)
+    api = get_model(cfg)
+    params = steps.shard_params(api.train_params(api.init(0, device=dev)),
+                                cfg, mesh)
+    opt = adamw_init(params, state_dtype=steps.state_dtype_of(cfg))
+    step_fn = steps.build_train_step(cfg, shape, mesh=mesh)
+    pipe = SyntheticTokens(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    want = ref["launches_per_step"]
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for i in range(MESH_TRAIN_STEPS):
+        before = read_counts(KERNELS + BWD_KERNELS)
+        _sync(dev)
+        t = time.perf_counter()
+        params, opt, loss, mx = step_fn(params, opt, pipe.batch_at(i), i)
+        _sync(dev)
+        dt = time.perf_counter() - t
+        after = read_counts(KERNELS + BWD_KERNELS)
+        per = {k: after[k] - before[k] for k in want}
+        lv, gn = float(loss), float(mx["grad_norm"])
+        r12 = ref["steps"][i]
+        runs.append(dict(step=i, ms=1e3 * dt, loss=lv, grad_norm=gn,
+                         launches=per, loss_12a=r12["loss"],
+                         grad_norm_12a=r12["grad_norm"],
+                         bitwise=(lv == r12["loss"]
+                                  and gn == r12["grad_norm"])))
+        log(f"  granite-3-2b sharded train step {i} (1×1 mesh): "
+            f"{1e3 * dt:.1f} ms, loss {lv:.6f} (12a {r12['loss']:.6f}), "
+            f"grad_norm {gn:.6f} (12a {r12['grad_norm']:.6f}), bitwise "
+            f"{runs[-1]['bitwise']}, launches {per}")
+        if not (abs(lv - r12["loss"]) <= 5e-3
+                and abs(gn / r12["grad_norm"] - 1) <= GRAD_TOL):
+            raise AssertionError(f"13a step {i}: loss {lv} grad_norm {gn} "
+                                 f"against 12a's {r12}")
+        if per != want and dev.type == "cuda":
+            raise AssertionError(f"13a step {i}: launches {per}, want "
+                                 f"{want}")
+    peak = torch.cuda.max_memory_allocated()
+    ms = [r["ms"] for r in runs]
+    med = statistics.median(ms[1:])
+    row = roofline.roofline_row({"arch": cfg.name, "shape": shape}, chips=1)
+    share = roofline.measured_shares(row, med / 1e3)
+    res = dict(arch=cfg.name, mesh="1x1", backend="nccl", shape=[B, S],
+               steps=runs, step_ms_median=med, tok_per_s=B * S / (med / 1e3),
+               peak_bytes=peak, launches_per_step=want,
+               bitwise=all(r["bitwise"] for r in runs), roofline=row,
+               shares=share, step_ms_12a=ref["step_ms_median"])
+    log(f"phase 13a: granite-3-2b full size, sharded step on the 1×1 NCCL "
+        f"mesh at {TRAIN_SHAPE}: step ms {', '.join(f'{x:.1f}' for x in ms)}"
+        f"; median of steps 1–{MESH_TRAIN_STEPS - 1} {med:.1f} ms (12a "
+        f"{ref['step_ms_median']:.1f} ms), {res['tok_per_s']:.0f} tokens/s; "
+        f"peak {peak / 2**30:.2f} GiB; loss and grad_norm bitwise 12a's: "
+        f"{res['bitwise']}")
+    log(f"  roofline (launch/roofline.py, chips=1, H100 SXM5 peaks): "
+        f"compute {1e3 * row['compute_s']:.1f} ms, memory "
+        f"{1e3 * row['memory_s']:.1f} ms, bound {1e3 * row['bound_s']:.1f} "
+        f"ms ({row['dominant']}), model FLOPs {row['model_flops']:.4e}; the "
+        f"measured step is {100 * share['bound_share']:.1f} % of the bound"
+        f", a model-FLOP share of {100 * share['mfu']:.1f} %")
+    del params, opt, step_fn
+    _empty_cache(dev)
+    return res
+
+
+def mesh_serve(dev, mesh, ref, serve=LM_SERVE):
+    """Phase 13b: phase 10b's 16 requests on 8 slots through
+    ``ServeEngine(mesh=)`` — granite-3-2b at full size, weights and cache
+    DTensors on the 1×1 mesh — every token equal to phase 10b's eager
+    ones, the RMSNorm launches of every step, step ms p50/p95."""
+    from repro_torch.runtime import ServeEngine
+
+    _empty_cache(dev)
+    cfg, api, params, _, _ = _lm_model(dev, "granite-3-2b")
+    per_step = (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
+    eng = ServeEngine(api, params, batch_slots=serve["slots"],
+                      max_seq=serve["max_seq"], mesh=mesh)
+    reqs = lm_requests(cfg, serve)
+    for r in reqs:
+        eng.submit(r)
+    before = read_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    after = read_counts()
+    per = {k: after[k] - before[k] for k in after}
+    steps = len(eng.step_s)
+    if dev.type == "cuda" and (per["rmsnorm"] != per_step * steps
+                               or per["flash_attention"]):
+        raise AssertionError(f"13b: launches {per} over {steps} steps")
+    tokens = [r.out for r in reqs]
+    if tokens != ref["served_tokens"]:
+        bad = [i for i, (a, b) in enumerate(zip(tokens, ref["served_tokens"]))
+               if a != b]
+        raise AssertionError(f"13b: requests {bad} differ from 10b's tokens")
+    ms = sorted(1e3 * t for t in eng.step_s)
+    p50 = statistics.median(ms)
+    p95 = ms[min(len(ms) - 1, int(round(0.95 * (len(ms) - 1))))]
+    n_tok = sum(len(t) for t in tokens)
+    res = dict(arch=cfg.name, mesh="1x1", steps=steps, tokens=n_tok,
+               wall_s=wall, tok_per_s=n_tok / wall, step_ms_p50=p50,
+               step_ms_p95=p95, launches=per, equal_to_10b=True,
+               step_ms_p50_10b=ref["step_ms_p50"],
+               step_ms_p95_10b=ref["step_ms_p95"])
+    log(f"phase 13b: ServeEngine on the 1×1 mesh, granite-3-2b full size: "
+        f"{len(reqs)} requests, {n_tok} tokens in {steps} steps, every "
+        f"token equal to 10b's; decode step p50 {p50:.2f} ms, p95 "
+        f"{p95:.2f} ms (10b {ref['step_ms_p50']:.2f} / "
+        f"{ref['step_ms_p95']:.2f} ms); {res['tok_per_s']:.1f} tokens/s "
+        f"(host clock); launches {per}")
+    del eng, params
+    _empty_cache(dev)
+    return res
+
+
+def mesh_dryrun_start():
+    """Phase 13c, started early: ``python -m repro_torch.launch.dryrun``
+    for :data:`MESH_DRYRUN_CELLS` on the fake 16×16 production mesh, on
+    this host's CPU, the cells in two processes at once. It runs beside
+    phase 12, whose steps wait on the card, not on the host's cores. A
+    thread a cell waits for its process and takes its wall. Returns the
+    running cells for :func:`mesh_dryrun`; stop them with
+    :func:`stop_cells` if the script fails first."""
+    import os
+    import tempfile
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_DRYRUN_MESH", None)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    procs = {}
+    for arch, shape in MESH_DRYRUN_CELLS:
+        path = Path(tmp) / f"{shape}.json"
+        c = dict(t0=time.perf_counter(), path=path, proc=subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(path)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+        def wait(c=c):
+            c["stdout"], c["stderr"] = c["proc"].communicate()
+            c["wall_s"] = time.perf_counter() - c["t0"]
+
+        c["waiter"] = threading.Thread(target=wait, daemon=True)
+        c["waiter"].start()
+        procs[(arch, shape)] = c
+    return dict(tmp=tmp, procs=procs)
+
+
+def stop_cells(cells):
+    import shutil
+    for c in cells["procs"].values():
+        if c["proc"].poll() is None:
+            c["proc"].kill()
+        c["waiter"].join()
+    shutil.rmtree(cells["tmp"], ignore_errors=True)
+
+
+def mesh_dryrun(cells, timeout=400):
+    """Phase 13c, collected: each cell ok, with FLOPs and collective
+    bytes; each cell's own wall (process start included)."""
+    out = {}
+    try:
+        for key, c in cells["procs"].items():
+            c["waiter"].join(max(0.0, timeout - (time.perf_counter()
+                                                 - c["t0"])))
+            if c["waiter"].is_alive():
+                raise AssertionError(f"dry run {key} past {timeout} s")
+            if c["proc"].returncode:
+                raise AssertionError(f"dry run {key} exited "
+                                     f"{c['proc'].returncode}:\n"
+                                     f"{c['stderr'][-3000:]}")
+            cell = json.loads(c["path"].read_text())[0]
+            coll = sum(cell.get("collective_bytes", {}).values())
+            if not (cell["status"] == "ok" and cell["flops"] > 0
+                    and coll > 0 and cell["ndev"] == 256):
+                raise AssertionError(f"dry run {key}: {cell}")
+            cell["wall_s"] = c["wall_s"]
+            out["/".join(key)] = cell
+            log(f"phase 13c: dry run {key[0]} × {key[1]} on the fake 16×16 "
+                f"mesh: ok in {c['wall_s']:.1f} s (host clock, process "
+                f"start included; run beside phase 12; trace "
+                f"{cell['trace_s']} s), {cell['flops']:.3e} FLOPs and "
+                f"{coll:.3e} collective bytes a device, arguments "
+                f"{cell['memory']['argument_size_in_bytes'] / 2**30:.2f} GiB "
+                "a device")
+    finally:
+        stop_cells(cells)
+    return out
+
+
+def mesh_nccl(timeout=300):
+    """Phase 13d: :func:`nccl_transport_rank` in one NCCL rank process."""
+    from repro_torch.comm import p2p
+    t0 = time.perf_counter()
+    (res,) = p2p.spawn(nccl_transport_rank, 1, backend="nccl",
+                       timeout=timeout)
+    res["wall_s"] = time.perf_counter() - t0
+    if not (res["ppermute_same"] and res["reduce_scatter_exact"]
+            and res["all_gather_exact"] and res["staged_bytes"] == 0):
+        raise AssertionError(f"13d: {res}")
+    log(f"phase 13d: NCCL world 1 on {res['device']}: ppermute (no pair), "
+        f"reduce_scatter and all_gather of 4 MiB exact, staged bytes "
+        f"{res['staged_bytes']}, {res['rounds']} round logged "
+        f"({res['wall_s']:.1f} s with the process start)")
+    return res
+
+
+def mesh_path(dev, lm, train, cells):
+    """Phase 13: the mesh at world 1 on the card — (a) granite's sharded
+    train step against 12a, (b) sharded serving against 10b, (c) the dry
+    run (started beside phase 12: ``cells``), (d) the NCCL transport. No multi-rank step on one card
+    (:data:`MULTIRANK_ON_ONE_CARD`)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    try:
+        mesh = _world_one(dev)
+    except BaseException:
+        stop_cells(cells)
+        raise
+    try:
+        zero_counts()
+        tr = mesh_train(dev, mesh, train["full"])
+        sv = mesh_serve(dev, mesh, lm["serve"])
+        launches = read_counts(KERNELS + BWD_KERNELS)
+    except BaseException:
+        stop_cells(cells)
+        raise
+    finally:
+        dist.destroy_process_group()
+    dry = mesh_dryrun(cells)
+    nccl = mesh_nccl()
+    wall = time.perf_counter() - t0
+    log(f"phase 13 (the mesh): {wall:.1f} s, main-path launches {launches}")
+    return dict(train=tr, serve=sv, dryrun=dry, nccl=nccl,
+                launches=launches, wall_s=wall,
+                multirank_on_one_card=MULTIRANK_ON_ONE_CARD)
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4233,7 +4641,13 @@ def main() -> int:
     bench = bench_path(dev)
     lm = lm_path(dev)
     fam = families_path(dev)
-    train = training_path(dev)
+    cells = mesh_dryrun_start()         # phase 13c, beside phase 12
+    try:
+        train = training_path(dev)
+    except BaseException:
+        stop_cells(cells)
+        raise
+    mesh = mesh_path(dev, lm, train, cells)
     for r in rows + new_rows + lm_rows + bwd_rows:  # ptxas of each instance
         if "symbol" in r:
             lib = r.get("kernel_lib") or next(
@@ -4288,13 +4702,17 @@ def main() -> int:
         "trsm": serial["backends"]["cuda"]["launches"]["trsm"]
         + ops["launches"]["trsm"],
         "rmsnorm": ops["launches"]["rmsnorm"] + lm["launches"]["rmsnorm"]
-        + fam["launches"]["rmsnorm"] + train["launches"]["rmsnorm"],
+        + fam["launches"]["rmsnorm"] + train["launches"]["rmsnorm"]
+        + mesh["launches"]["rmsnorm"],
         "flash_attention": ops["launches"]["flash_attention"]
         + lm["launches"]["flash_attention"]
         + fam["launches"]["flash_attention"]
-        + train["launches"]["flash_attention"],
-        "rmsnorm_bwd": train["launches"]["rmsnorm_bwd"],
-        "flash_attention_bwd": train["launches"]["flash_attention_bwd"],
+        + train["launches"]["flash_attention"]
+        + mesh["launches"]["flash_attention"],
+        "rmsnorm_bwd": train["launches"]["rmsnorm_bwd"]
+        + mesh["launches"]["rmsnorm_bwd"],
+        "flash_attention_bwd": train["launches"]["flash_attention_bwd"]
+        + mesh["launches"]["flash_attention_bwd"],
     }
     # the backward kernels have no TPU kernel: they take the place of the
     # JAX package's autodiff of the jnp functions named
@@ -4358,7 +4776,7 @@ def main() -> int:
          "serial": serial, "serve": serve,
          "ops_path": ops, "bench": bench, "lm": lm, "lm_families": fam,
          "lm_kernel_rows": lm_rows, "backward_rows": bwd_rows,
-         "training": train,
+         "training": train, "mesh": mesh,
          "sass": sass, "ptxas": ptxas, "kernels": kernels}, indent=1,
         default=str))
     log(f"total wall {wall_s:.1f} s (host clock, build included)")

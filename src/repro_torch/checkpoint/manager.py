@@ -18,7 +18,15 @@ raises the writer's error.
 :meth:`CheckpointManager.restore` writes the stored values into the
 tensors of the tree it is given, in place, on their devices (the JAX
 manager returns a new tree): at granite-3-2b's size a second copy of the
-parameters and moments would not fit beside the first."""
+parameters and moments would not fit beside the first.
+
+A DTensor leaf (the sharded steps) is gathered whole with
+``full_tensor()`` on save, as the JAX manager's ``np.asarray`` of a
+sharded array, and restored into each rank's shard of the template. In
+a ``torch.distributed`` group every rank gathers (a collective), rank 0
+alone writes, synchronously, and the ranks meet at a barrier before
+``save`` returns, so any rank that lists the steps sees the same
+ones."""
 from __future__ import annotations
 
 import json
@@ -29,7 +37,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 __all__ = ["CheckpointManager", "flatten"]
 
@@ -58,6 +68,8 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     leaves in place while the writer thread still reads the copy (``.cpu()``
     of a CPU tensor would be the live storage)."""
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).to("cpu", copy=True).numpy().view(
             np.uint16)
@@ -85,6 +97,11 @@ class CheckpointManager:
         self.wait()
         host = [(k, _to_host(v), str(v.dtype).replace("torch.", ""))
                 for k, v in flatten(tree)]
+        if dist.is_initialized():
+            if dist.get_rank() == 0:
+                self._write(step, host)
+            dist.barrier()
+            return
 
         def write():
             try:
@@ -183,5 +200,10 @@ class CheckpointManager:
                                  f"{tuple(src.shape)} {src.dtype}, the "
                                  f"template holds {tuple(t.shape)} "
                                  f"{t.dtype}")
-            t.copy_(src)
+            if isinstance(t, DTensor):
+                t.to_local().copy_(distribute_tensor(
+                    src.to(t.device), t.device_mesh, t.placements,
+                    src_data_rank=None).to_local())
+            else:
+                t.copy_(src)
         return template

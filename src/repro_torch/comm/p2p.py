@@ -28,14 +28,19 @@ mesh; here every rank is a process of a ``torch.distributed`` group:
 through its data pointer on the host. It does not refuse a CUDA tensor
 in ``send`` or ``batch_isend_irecv``: it hands the device pointer to
 ``writev``, which fails with "Bad address", and the sender aborts (seen
-with torch 2.11 and gloo's TCP transport on an H100 host). A CUDA tensor
-is therefore staged explicitly through reused pinned host buffers,
-device → pinned → gloo → pinned → device. The compute stays on the
-card, every staged byte is counted in :data:`LOG`, and nothing moves to
-the host unless a rank's message does. NCCL would move device memory directly, but it refuses two
-ranks on one card, and the port's multi-rank runs put all eight ranks on
-one H100; ``backend="nccl"`` raises until a machine with several cards
-can check it (ROADMAP Queue 1).
+with torch 2.11 and gloo's TCP transport on an H100 host). In a gloo
+group a CUDA tensor is therefore staged explicitly through reused pinned
+host buffers, device → pinned → gloo → pinned → device. The compute
+stays on the card, every staged byte is counted in :data:`LOG`, and
+nothing moves to the host unless a rank's message does. gloo is the
+default, and the PSelInv ranked sweeps stay on it: their eight ranks
+share one card.
+
+``backend="nccl"`` runs one rank a card (``torch.cuda.set_device(rank)``)
+and passes CUDA tensors straight to NCCL — no staging, so
+``LOG.staged_bytes`` stays 0, while every message is logged as on gloo.
+NCCL refuses two ranks on one card: :func:`spawn` raises when the world
+is larger than the card count, and on a host without NCCL or a card.
 
 Group coordinates: ``perm`` pairs are ranks of ``group`` (the default
 group when None); the log records global ranks."""
@@ -57,11 +62,6 @@ from ..core import exec_ir
 
 __all__ = ["SendLog", "LOG", "spawn", "ppermute", "reduce_scatter",
            "all_gather", "global_rank"]
-
-_NCCL = ("backend='nccl' is not supported: NCCL refuses two ranks on one "
-         "card, and the port's multi-rank runs share one; the NCCL half "
-         "waits for a machine with several cards (ROADMAP Queue 1)")
-
 
 @dataclass
 class SendLog:
@@ -122,9 +122,13 @@ def global_rank(group, rank: int) -> int:
     return dist.get_global_rank(group, rank)
 
 
-def _check_backend(group) -> None:
-    if dist.get_backend(group) != "gloo":
-        raise NotImplementedError(_NCCL)
+def _staged(group) -> bool:
+    """Whether ``group``'s transport needs CUDA payloads staged on the
+    host: gloo does, NCCL takes device memory."""
+    backend = dist.get_backend(group)
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"unknown backend {backend!r}")
+    return backend == "gloo"
 
 
 def _pinned(role: str, dtype: torch.dtype, numel: int) -> torch.Tensor:
@@ -188,9 +192,10 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
     rank sends at most once and receives at most once; a destination
     returns the value it received, every other rank its own ``x``, and a
     rank outside ``perm`` moves nothing. Every rank of the group calls it
-    for every round (the round number in :data:`LOG` counts calls). A
-    CUDA ``x`` is staged through pinned host buffers."""
-    _check_backend(group)
+    for every round (the round number in :data:`LOG` counts calls). On
+    gloo a CUDA ``x`` is staged through pinned host buffers; NCCL moves
+    it as it is."""
+    staged = _staged(group)
     me, size = dist.get_rank(group), dist.get_world_size(group)
     pairs = [(int(s), int(d)) for s, d in perm]
     srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
@@ -213,16 +218,21 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
     ops = []
     if to:
         peer = global_rank(group, to[0])
-        ops.append(dist.P2POp(dist.isend, _to_host("send", x), peer, group))
+        ops.append(dist.P2POp(dist.isend, _to_host("send", x) if staged
+                              else x.contiguous(), peer, group))
         LOG.entries.append((rnd, gme, peer, nbytes))
     if frm:
         peer = global_rank(group, frm[0])
-        rbuf = _host_buffer("recv", x, x.numel())
+        rbuf = (_host_buffer("recv", x, x.numel()) if staged
+                else torch.empty_like(x, memory_format=torch.contiguous_format))
         ops.append(dist.P2POp(dist.irecv, rbuf, peer, group))
         LOG.entries.append((rnd, peer, gme, nbytes))
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    out = _to_device("recv", rbuf, x, x.shape) if frm else x
+    if not frm:
+        out = x
+    else:
+        out = _to_device("recv", rbuf, x, x.shape) if staged else rbuf
     LOG.wait_s += time.perf_counter() - t0
     return out
 
@@ -231,7 +241,7 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     """``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=True)``:
     the group's sum of ``x``, split along dim 0 into group-size tiles,
     rank i keeping tile i. ``x.shape[0]`` must divide evenly."""
-    _check_backend(group)
+    staged = _staged(group)
     rec = exec_ir.active()
     if rec is not None:
         rec.collective("reduce-scatter", x)
@@ -240,10 +250,15 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
         raise ValueError(f"leading dim {x.shape[0]} is not divisible by "
                          f"the group size {n}")
     t0 = time.perf_counter()
-    h = _to_host("rs_in", x)
-    out = _host_buffer("rs_out", x, h.numel() // n)
-    dist.reduce_scatter(out, list(h.chunk(n)), group=group)
-    res = _to_device("rs_out", out, x, (x.shape[0] // n,) + x.shape[1:])
+    shape = (x.shape[0] // n,) + x.shape[1:]
+    if staged:
+        h = _to_host("rs_in", x)
+        out = _host_buffer("rs_out", x, h.numel() // n)
+        dist.reduce_scatter(out, list(h.chunk(n)), group=group)
+        res = _to_device("rs_out", out, x, shape)
+    else:
+        res = torch.empty(shape, dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(res, x.contiguous(), group=group)
     LOG.wait_s += time.perf_counter() - t0
     return res
 
@@ -251,16 +266,21 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """``lax.all_gather(x, axis, axis=0, tiled=True)``: every rank's
     ``x`` concatenated along dim 0 in rank order."""
-    _check_backend(group)
+    staged = _staged(group)
     rec = exec_ir.active()
     if rec is not None:
         rec.collective("all-gather", x)
     n = dist.get_world_size(group)
     t0 = time.perf_counter()
-    h = _to_host("ag_in", x)
-    out = _host_buffer("ag_out", x, h.numel() * n)
-    dist.all_gather(list(out.chunk(n)), h, group=group)
-    res = _to_device("ag_out", out, x, (x.shape[0] * n,) + x.shape[1:])
+    shape = (x.shape[0] * n,) + x.shape[1:]
+    if staged:
+        h = _to_host("ag_in", x)
+        out = _host_buffer("ag_out", x, h.numel() * n)
+        dist.all_gather(list(out.chunk(n)), h, group=group)
+        res = _to_device("ag_out", out, x, shape)
+    else:
+        res = torch.empty(shape, dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(res, x.contiguous(), group=group)
     LOG.wait_s += time.perf_counter() - t0
     return res
 
@@ -287,6 +307,8 @@ def _entry(rank: int, world_size: int, init_method: str, backend: str,
     fn, args = pickle.loads(work.get())
     # all ranks share this host: gloo talks over the loopback interface
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank)
     try:
@@ -313,6 +335,18 @@ def _first_failure(results, timeout: float) -> Optional[str]:
     return None
 
 
+def _check_nccl(world_size: int) -> None:
+    """Raise unless this host can run ``world_size`` NCCL ranks, one a
+    card."""
+    if not dist.is_nccl_available():
+        raise RuntimeError("backend='nccl': this torch has no NCCL")
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world_size > cards:
+        raise RuntimeError(f"backend='nccl' runs one rank a card: "
+                           f"{world_size} ranks, {cards} cards (NCCL "
+                           "refuses two ranks on one card)")
+
+
 def spawn(fn: Callable, world_size: int, *args, backend: str = "gloo",
           timeout: Optional[float] = None) -> list:
     """Run ``fn(rank, *args)`` in ``world_size`` new processes joined in
@@ -326,10 +360,11 @@ def spawn(fn: Callable, world_size: int, *args, backend: str = "gloo",
     ``timeout`` seconds (``TimeoutError``). A rank on the card calls
     ``torch.cuda.set_device`` before it allocates; build the CUDA kernels
     in the parent first, so the ranks load them instead of racing to
-    build them."""
+    build them. ``backend="nccl"`` puts rank r on card r (``set_device``
+    before the group starts)."""
     if backend == "nccl":
-        raise NotImplementedError(_NCCL)
-    if backend != "gloo":
+        _check_nccl(world_size)
+    elif backend != "gloo":
         raise ValueError(f"unknown backend {backend!r}")
     import torch.multiprocessing as mp
 

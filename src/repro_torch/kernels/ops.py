@@ -13,10 +13,22 @@ input needs a gradient they run as ``torch.autograd.Function`` objects: the
 forward kernel (flash with its log-sum-exp output on), and the backward
 kernel in the backward pass — on a CPU tensor the plain versions of
 both. When none does (serving, ``torch.no_grad``) they call the forward
-kernel exactly as before, and the log-sum-exp is not written."""
+kernel exactly as before, and the log-sum-exp is not written.
+
+A DTensor input (the sharded steps of ``launch/steps.py``) reaches the
+same kernels on its local shard, through ``local_map`` with placements
+declared per input and output, and the backward kernels see the same
+shards. RMSNorm is row-local: rows stay sharded as they come (batch over
+data, sequence over model); a sharded last dim or a pending sum is
+redistributed first, explicitly, and the scale is whole on every rank.
+Flash attention is local per (batch, head) shard: batch over the mesh
+dims that already shard it, heads over ``model`` when H divides, else
+replicated there (the rule of ``runtime/sharding.py``'s ``attn_*``
+specs); the sequence is whole on every rank."""
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .block_gemm import block_gemm as _block_gemm
 from .block_gemm import blocked_gemm
@@ -27,7 +39,8 @@ from .rmsnorm_bwd import rmsnorm_bwd as _rmsnorm_bwd
 from .trsm import trsm as _trsm
 
 __all__ = ["block_gemm", "block_gemm_acc", "flash_attention", "rmsnorm",
-           "trsm", "pselinv_level_gemm", "pselinv_round_gemm"]
+           "trsm", "pselinv_level_gemm", "pselinv_round_gemm",
+           "row_placements"]
 
 
 def block_gemm(a, b):
@@ -120,17 +133,92 @@ def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def flash_attention(q, k, v, causal=True):
-    """Softmax attention over (B, S, H, hd) tensors, same H for q, k, v."""
+def _flash_local(q, k, v, causal):
     if _needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal)
     return _flash_attention(q, k, v, causal=causal)
 
 
-def rmsnorm(x, scale, eps=1e-5):
+def _rmsnorm_local(x, scale, eps):
     if _needs_grad(x, scale):
         return RMSNormFn.apply(x, scale, eps)
     return _rmsnorm(x, scale, eps=eps)
+
+
+def flash_attention(q, k, v, causal=True):
+    """Softmax attention over (B, S, H, hd) tensors, same H for q, k, v."""
+    if isinstance(q, DTensor):
+        return _flash_sharded(q, k, v, causal)
+    return _flash_local(q, k, v, causal)
+
+
+def rmsnorm(x, scale, eps=1e-5):
+    if isinstance(x, DTensor):
+        return _rmsnorm_sharded(x, scale, eps)
+    return _rmsnorm_local(x, scale, eps)
+
+
+def row_placements(x: DTensor) -> tuple:
+    """``x``'s placements with a shard of its last dim, or a pending sum,
+    made replicated: the layout in which each rank holds whole rows."""
+    last = x.ndim - 1
+    return tuple(Replicate() if isinstance(p, Partial) or
+                 (isinstance(p, Shard) and p.dim in (last, -1)) else p
+                 for p in x.placements)
+
+
+def _rmsnorm_sharded(x, scale, eps):
+    """RMSNorm of a DTensor on its local rows: ``x`` keeps every shard of
+    its leading dims; a shard of the last dim or a pending sum becomes
+    replicated first. The scale's gradient is a sum over the ranks whose
+    rows differ (``Partial`` there)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    pl = row_placements(x)
+    x = x.redistribute(mesh, pl)
+    whole = (Replicate(),) * mesh.ndim
+    if isinstance(scale, DTensor):
+        scale = scale.redistribute(mesh, whole)
+    else:
+        scale = DTensor.from_local(scale, mesh, whole, run_check=False)
+    ds = tuple(Partial() if isinstance(p, Shard) else Replicate()
+               for p in pl)
+    fn = local_map(_rmsnorm_local, out_placements=list(pl),
+                   in_placements=(pl, whole, None),
+                   in_grad_placements=(pl, ds, None), device_mesh=mesh)
+    return fn(x, scale, eps)
+
+
+def _flash_placements(q) -> tuple:
+    """The flash kernel's placement of a (B, S, H, hd) DTensor: ``Shard(0)``
+    on the mesh dims that shard its batch now, ``Shard(2)`` on ``model``
+    when H divides that dim, ``Replicate()`` elsewhere."""
+    mesh, H = q.device_mesh, q.shape[2]
+    names = mesh.mesh_dim_names or ()
+    out = []
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            out.append(p)
+        elif i < len(names) and names[i] == "model" and \
+                H % mesh.size(i) == 0:
+            out.append(Shard(2))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _flash_sharded(q, k, v, causal):
+    """Flash attention of DTensors on each rank's (batch, head) shard:
+    q, k and v are redistributed to :func:`_flash_placements` of ``q``
+    (the whole sequence on every rank) and the kernel runs on the local
+    shards, forward and backward."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    pl = _flash_placements(q)
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    fn = local_map(_flash_local, out_placements=list(pl),
+                   in_placements=(pl, pl, pl, None), device_mesh=mesh)
+    return fn(q, k, v, causal)
 
 
 def trsm(b, u):

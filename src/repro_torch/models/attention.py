@@ -23,13 +23,19 @@ kernel. The new K/V are written into the cache at ``pos`` by an indexed
 write, in place: the same values as the JAX one-hot blend
 (``attention.py:167-171``) for finite entries, without its O(B·S) pass
 per layer. A row whose ``pos`` is past the cache writes nothing, as the
-blend's all-zero one-hot does."""
+blend's all-zero one-hot does.
+
+On a mesh the cache is a DTensor laid out by ``cache_pspec`` (batch over
+data, sequence over model): each rank writes the new K/V into its own
+shard where ``pos`` falls in its sequence range, then attends over its
+batch rows with the sequence gathered whole (:func:`_decode_sharded`)."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from . import layers
 from .layers import Linear, RMSNorm, apply_rope, linear, rmsnorm
@@ -121,6 +127,8 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
     else:
         q, k, v = _project_qkv(p, cfg, x, positions)
         out = _flash(q, k, v, causal)
+        if isinstance(out, DTensor):         # back to x's rows
+            out = out.redistribute(x.device_mesh, x.placements)
     B, S = x.shape[:2]
     return linear(p.wo, out.reshape(B, S, cfg.n_heads * cfg.hd))
 
@@ -137,25 +145,77 @@ def _write(cache: torch.Tensor, pos: torch.Tensor, new: torch.Tensor):
                                   cache[rows, at])
 
 
+def _attend(cfg, q, k_cache, v_cache, pos, dtype) -> torch.Tensor:
+    """One new query a row against the cache up to ``pos``: q (B, 1, h,
+    hd), caches (B, S, KV, hd) → (B, 1, h·hd)."""
+    B, S = k_cache.shape[:2]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    qr = q.reshape(B, kv, h // kv, hd) * hd ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache).to(torch.float32)
+    mask = torch.arange(S, device=q.device)[None] <= pos[:, None]  # (B,S)
+    s = s.masked_fill(~mask[:, None, None], -1e30)
+    w = torch.softmax(s, dim=-1).to(dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", w, v_cache).to(dtype)
+    return out.reshape(B, 1, h * hd)
+
+
 def decode_attention(p: Attention, cfg, x: torch.Tensor, pos: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode. x: (B,1,D); caches: (B,S,KV,hd), written in
     place; pos: (B,) current index. Returns (out, k_cache, v_cache)."""
-    B = x.shape[0]
-    S = k_cache.shape[1]
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    G = h // kv
     pos = pos.long()
     q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None])
+    if isinstance(k_cache, DTensor):
+        out = _decode_sharded(cfg, q, k_new, v_new, pos, k_cache, v_cache,
+                              x.dtype)
+        return linear(p.wo, out), k_cache, v_cache
     _write(k_cache, pos, k_new[:, 0])
     _write(v_cache, pos, v_new[:, 0])
-
-    qr = q.reshape(B, kv, G, hd) * hd ** -0.5
-    s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache).to(torch.float32)
-    mask = torch.arange(S, device=x.device)[None] <= pos[:, None]   # (B,S)
-    s = s.masked_fill(~mask[:, None, None], -1e30)
-    w = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgs,bskd->bkgd", w, v_cache).to(x.dtype)
-    out = out.reshape(B, 1, h * hd)
+    out = _attend(cfg, q, k_cache, v_cache, pos, x.dtype)
     return linear(p.wo, out), k_cache, v_cache
+
+
+def _shard_range(size: int, mesh, placements, dim: int) -> Tuple[int, int]:
+    """(first index, length) of this rank's shard of dim ``dim`` (of
+    ``size``, which every sharding mesh dim divides), sharded left to
+    right over the mesh dims that name it."""
+    coord = mesh.get_coordinate()
+    first, n = 0, size
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n //= mesh.size(i)
+            first += coord[i] * n
+    return first, n
+
+
+def _decode_sharded(cfg, q, k_new, v_new, pos, k_cache, v_cache, dtype):
+    """The decode attention on DTensors: q, the new K/V and ``pos`` are
+    laid out as the cache's batch rows; each rank writes its rows' new
+    entries into its sequence shard, in place, then attends over the
+    cache gathered whole along the sequence. Returns the output rows as
+    a DTensor."""
+    mesh = k_cache.device_mesh
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in k_cache.placements)
+    q, k_new, v_new, pos = (t.redistribute(mesh, rows).to_local()
+                            if isinstance(t, DTensor) else
+                            DTensor.from_local(t, mesh, (Replicate(),)
+                                               * mesh.ndim,
+                                               run_check=False)
+                            .redistribute(mesh, rows).to_local()
+                            for t in (q, k_new, v_new, pos))
+    S = k_cache.shape[1]
+    first, n = _shard_range(S, mesh, k_cache.placements, 1)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        loc = cache.to_local()
+        rel = pos - first
+        inside = (pos < S) & (rel >= 0) & (rel < n)
+        at = torch.clamp(rel, 0, n - 1)
+        r = torch.arange(loc.shape[0], device=loc.device)
+        loc[r, at] = torch.where(inside[:, None, None], new[:, 0],
+                                 loc[r, at])
+    kf = k_cache.redistribute(mesh, rows).to_local()
+    vf = v_cache.redistribute(mesh, rows).to_local()
+    out = _attend(cfg, q, kf, vf, pos, dtype)
+    return DTensor.from_local(out, mesh, rows, run_check=False)

@@ -21,6 +21,13 @@ the last JAX rounding is exact and the two differ by at most one bf16 ulp
 per element; with a general bf16 scale the bound is two ulps
 (``tests/test_torch_models.py`` holds both).
 
+:func:`whole` is the sharded steps' one rule for weights: a DTensor
+parameter (sharded at rest per ``runtime/sharding.py``) is cast to the
+activation's dtype and gathered whole on every rank at its use — the
+all-gather of ZeRO-3 — so that a product splits its rows the way the
+activation does (batch over data, sequence or heads over model), and its
+gradient comes back to the parameter's shards as a reduce-scatter.
+
 :func:`plain_kernels` is a test-only switch: inside it, RMSNorm and flash
 attention run their plain PyTorch versions on any device. It is off by
 default and nothing turns it on after a failure."""
@@ -32,13 +39,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import ops as kops
 from ..kernels.ref import rmsnorm_ref
 
 __all__ = ["RMSNorm", "Linear", "MLP", "Embed", "rmsnorm", "linear",
            "rope_freqs", "apply_rope", "mlp", "embed", "cross_entropy",
-           "plain_kernels", "plain_route"]
+           "plain_kernels", "plain_route", "whole", "rowwise"]
 
 _PLAIN = False
 
@@ -96,6 +104,14 @@ class Embed(nn.Module):
         self.table = _param((vocab, d), dtype, device)
 
 
+def whole(w: torch.Tensor) -> torch.Tensor:
+    """``w`` itself; a DTensor replicated on every mesh dim."""
+    if isinstance(w, DTensor):
+        return w.redistribute(w.device_mesh,
+                              (Replicate(),) * w.device_mesh.ndim)
+    return w
+
+
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last axis through the hand-written kernel (see the
     module note for its one rounding against the JAX function's three)."""
@@ -107,7 +123,29 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
-    return x @ p.w.to(x.dtype)
+    return rowwise(torch.matmul, x, whole(p.w.to(x.dtype)))
+
+
+def rowwise(fn, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``fn(x, w)``. For a DTensor ``x``: on each rank's rows of ``x``
+    (whole rows, see ``kernels.ops.row_placements``) with ``w`` whole, the result
+    keeping the rows' placements and ``w``'s gradient a sum over the
+    ranks whose rows differ — a ``local_map``, not DTensor's own
+    propagation, which would flatten (B, S) and cannot unflatten a batch
+    and a sequence sharded over two mesh dims."""
+    if not isinstance(x, DTensor):
+        return fn(x, w)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    pl = kops.row_placements(x)
+    x = x.redistribute(mesh, pl)
+    whole_pl = (Replicate(),) * mesh.ndim
+    grad_w = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                   for p in pl)
+    return local_map(fn, out_placements=list(pl),
+                     in_placements=(pl, whole_pl),
+                     in_grad_placements=(pl, grad_w),
+                     device_mesh=mesh)(x, w)
 
 
 # -- RoPE -------------------------------------------------------------------
@@ -147,22 +185,47 @@ def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
 def embed(p: Embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """``table.astype(dtype)[tokens]``: the rows are gathered first and
     cast after, the same values without casting the whole table."""
-    return p.table[tokens.long()].to(dtype)
+    return rowwise(_gather_rows, tokens, whole(p.table)).to(dtype)
+
+
+def _gather_rows(tokens, table):
+    return table[tokens.long()]
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    lmax = logits.detach().amax(dim=-1, keepdim=True).to(torch.float32)
+    shifted = logits.to(torch.float32) - lmax
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    gold = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
+    return lse - gold
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean cross entropy in f32, as ``repro/models/layers.py:81``
-    (the max is taken without gradient)."""
-    lmax = logits.detach().amax(dim=-1, keepdim=True).to(torch.float32)
-    shifted = logits.to(torch.float32) - lmax
-    lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    gold = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    (the max is taken without gradient). DTensor logits: each rank's
+    whole rows (the vocabulary gathered), then the mean over the mesh."""
+    if isinstance(logits, DTensor):
+        nll = _rowwise_nll(logits, labels)
+    else:
+        nll = _nll(logits, labels)
     if mask is not None:
         mask = mask.to(torch.float32)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def _rowwise_nll(logits: DTensor, labels: DTensor) -> DTensor:
+    """:func:`_nll` on each rank's whole rows of ``logits`` (B, S, V), the
+    labels laid out as the rows."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    pl = kops.row_placements(logits)
+    logits = logits.redistribute(mesh, pl)
+    labels = labels.redistribute(mesh, pl)
+    return local_map(_nll, out_placements=list(pl),
+                     in_placements=(pl, pl), device_mesh=mesh)(logits,
+                                                                labels)
 
 
 def init_normal_(w: torch.Tensor, std: float, generator) -> torch.Tensor:

@@ -25,7 +25,16 @@ a token to different experts where its k-th and (k+1)-th router
 probabilities are closer than the runs' rounding noise. :class:`RouteLog`
 records every routing ``moe_ffn`` makes, and :func:`route_flips` says
 which rows such flips reach, after holding each flip to that near-tie
-rule."""
+rule.
+
+On a mesh (a DTensor ``x``, the sharded steps) the routing and the
+combine run on every rank over all tokens, in plain ops on the gathered
+activations and router — the same ``G`` = ``data_groups`` groups as the
+JAX package's sharded MoE, whose capacity is per group — and the expert
+FFN, the bulk of the work, runs sharded: the dispatched buffer is a
+DTensor constrained by ``moe_dispatch`` (groups over data, experts over
+model when E divides) and ``moe_ffn_act``, with each expert weight
+gathered whole at its use."""
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
@@ -33,8 +42,9 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
-from .layers import Linear, _param
+from .layers import Linear, _param, whole
 from .sharding_hooks import constrain, policy_info
 
 __all__ = ["MoE", "Route", "moe_route", "moe_ffn", "RouteLog", "RouteRows",
@@ -92,15 +102,19 @@ def moe_route(p: MoE, cfg, x: torch.Tensor) -> Route:
     cap = int((Tl * k) / E * cfg.capacity_factor) + 1
 
     xt = x.reshape(G, Tl, D)
+    w = p.router.w
+    if isinstance(w, DTensor):
+        w = whole(w).to_local()
     logits = torch.einsum("gtd,de->gte", xt.to(torch.float32),
-                          p.router.w.to(torch.float32))
+                          w.to(torch.float32))
     probs = torch.softmax(logits, dim=-1)
     gate, ids = torch.topk(probs, k, dim=-1, sorted=True)     # (G,Tl,k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
     me = probs.mean((0, 1))                                      # (E,)
-    ce = torch.bincount(ids.reshape(-1), minlength=E).to(
-        torch.float32) / (T * k)
+    flat = ids.reshape(-1)            # counts of a known shape (no bincount)
+    ce = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).to(torch.float32) / (T * k)
     aux = E * torch.sum(me * ce)
 
     flat_ids = ids.reshape(G, Tl * k)
@@ -119,6 +133,9 @@ def moe_ffn(p: MoE, cfg, x: torch.Tensor
     gather of the module note."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    like = x if isinstance(x, DTensor) else None
+    if like is not None:                # every rank routes every token
+        x = x.full_tensor()
     r = moe_route(p, cfg, x)
     for log in _LOGS:
         log.calls.append(r)
@@ -139,13 +156,19 @@ def moe_ffn(p: MoE, cfg, x: torch.Tensor
     slot2tok = imap // k                                 # (G,E,cap) ∈ [0,Tl]
     xt_pad = torch.cat([xt, xt.new_zeros(G, 1, D)], dim=1)
     gi = torch.arange(G, device=dev)[:, None, None]
-    eb = constrain(xt_pad[gi, slot2tok], "moe_dispatch")     # (G,E,cap,D)
+    eb = xt_pad[gi, slot2tok]                                # (G,E,cap,D)
+    if like is not None:
+        eb = _replicated(eb, like)
+    eb = constrain(eb, "moe_dispatch")
 
-    up = torch.einsum("gecd,edf->gecf", eb, p.w_up.to(x.dtype))
-    g = torch.einsum("gecd,edf->gecf", eb, p.w_gate.to(x.dtype))
-    h = constrain(F.silu(g) * up, "moe_ffn_act")
-    out = torch.einsum("gecf,efd->gecd", h, p.w_down.to(x.dtype))
+    if like is None:
+        out = _experts(eb, p.w_up.to(x.dtype), p.w_gate.to(x.dtype),
+                       p.w_down.to(x.dtype))
+    else:
+        out = _experts_sharded(eb, p, x.dtype)
     out = constrain(out, "moe_dispatch")
+    if like is not None:
+        out = out.full_tensor()
 
     # combine: each (token, choice) gathers its slot's row (a dropped one
     # the zero row E·cap), weighted by its gate in x's dtype; the k rows
@@ -156,7 +179,94 @@ def moe_ffn(p: MoE, cfg, x: torch.Tensor
     picked = rows[torch.arange(G, device=dev)[:, None], slot]   # (G,Tk,D)
     picked = picked * r.gate.reshape(G, Tk, 1).to(x.dtype)
     y = picked.reshape(G, Tl, k, D).sum(2, dtype=torch.float32).to(x.dtype)
-    return y.reshape(B, S, D), r.aux
+    y = y.reshape(B, S, D)
+    if like is not None:
+        return (_replicated(y, like).redistribute(like.device_mesh,
+                                                  like.placements),
+                _replicated(r.aux, like))
+    return y, r.aux
+
+
+def _expert_up(eb, w_up, w_gate):
+    """The gated up-projection of every expert: eb (G, E, cap, D) →
+    (G, E, cap, F)."""
+    up = torch.einsum("gecd,edf->gecf", eb, w_up)
+    g = torch.einsum("gecd,edf->gecf", eb, w_gate)
+    return F.silu(g) * up
+
+
+def _expert_down(h, w_down):
+    return torch.einsum("gecf,efd->gecd", h, w_down)
+
+
+def _experts(eb, w_up, w_gate, w_down):
+    """SwiGLU of every expert over its buffer: eb (G, E, cap, D)."""
+    h = constrain(_expert_up(eb, w_up, w_gate), "moe_ffn_act")
+    return _expert_down(h, w_down)
+
+
+def _experts_sharded(eb: DTensor, p: MoE, dtype) -> DTensor:
+    """:func:`_experts` on each rank's shard of the dispatched buffer
+    (``moe_dispatch``: groups over data, experts over model when E
+    divides), with each rank's experts' weights. Where the experts do not
+    divide and the FFN width does (``moe_ffn_act``), each rank takes a
+    slice of every expert's up-projections; the activations are then
+    gathered whole and the down-projection runs on every rank of the
+    model axis (its output would otherwise be a pending sum, whose
+    gradient ``local_map`` cannot hand back). Gradients of a weight or
+    of the buffer are sums over the ranks whose rows or FFN slices
+    differ."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..runtime.sharding import act_spec
+    mesh = eb.device_mesh
+    names = mesh.mesh_dim_names
+    G, E, cap, _ = eb.shape
+    act = act_spec("moe_ffn_act", (G, E, cap, p.w_up.shape[-1]), mesh)
+    f_axis = act[3] if act is not None else None
+    eb_pl = tuple(eb.placements)
+    up_pl, dn_pl, h_pl, g_eb, g_w, g_dn = [], [], [], [], [], []
+    for i, pl in enumerate(eb_pl):
+        rows = isinstance(pl, Shard) and pl.dim == 0          # groups
+        if isinstance(pl, Shard) and pl.dim == 1:             # experts
+            up_pl.append(Shard(0)); dn_pl.append(Shard(0))
+            h_pl.append(pl); g_eb.append(pl); g_w.append(Shard(0))
+            g_dn.append(Shard(0))
+        elif names[i] == f_axis:                              # FFN width
+            up_pl.append(Shard(2)); dn_pl.append(Replicate())
+            h_pl.append(Shard(3)); g_eb.append(Partial())
+            g_w.append(Shard(2)); g_dn.append(Replicate())
+        else:
+            up_pl.append(Replicate()); dn_pl.append(Replicate())
+            h_pl.append(pl); g_eb.append(pl)
+            g_w.append(Partial() if rows else Replicate())
+            g_dn.append(g_w[-1])
+    w_up, w_gate, w_down = (
+        (w.to(dtype) if isinstance(w, DTensor)
+         else _replicated(w.to(dtype), eb)).redistribute(mesh, pl)
+        for w, pl in ((p.w_up, up_pl), (p.w_gate, up_pl),
+                      (p.w_down, dn_pl)))
+    h = local_map(_expert_up, out_placements=h_pl,
+                  in_placements=(eb_pl, up_pl, up_pl),
+                  in_grad_placements=(g_eb, g_w, g_w),
+                  device_mesh=mesh)(eb, w_up, w_gate)
+    h = constrain(h, "moe_ffn_act")
+    rows_pl = tuple(Replicate() if isinstance(q, Shard) and q.dim == 3
+                    else q for q in h.placements)
+    h = h.redistribute(mesh, rows_pl)
+    return local_map(_expert_down, out_placements=list(rows_pl),
+                     in_placements=(rows_pl, dn_pl),
+                     in_grad_placements=(rows_pl, g_dn),
+                     device_mesh=mesh)(h, w_down)
+
+
+def _replicated(t: torch.Tensor, like: DTensor) -> DTensor:
+    """``t``, the same on every rank, as a replicated DTensor on
+    ``like``'s mesh."""
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------

@@ -2,10 +2,11 @@
 The models stay mesh-agnostic; a launcher may install a policy that maps
 logical tensor names ("hidden", "logits", "kv_cache", …) to a placement.
 
-On one card no policy is installed and :func:`constrain` returns its
+Without a mesh no policy is installed and :func:`constrain` returns its
 input. A policy is any callable ``policy(name, x)`` returning the tensor
-to use in place of ``x`` (or ``None`` to leave it); the placement policy
-itself (``runtime/sharding.py``) waits for the multi-card slice."""
+to use in place of ``x`` (or ``None`` to leave it). The sharded steps
+install ``runtime.sharding.act_policy(mesh)``, which redistributes a
+DTensor to its name's placement; a plain tensor passes untouched."""
 from __future__ import annotations
 
 import contextlib

@@ -36,7 +36,7 @@ from . import moe as moe_mod
 from . import xlstm as xlstm_mod
 from .attention import Attention
 from .layers import (MLP, Embed, Linear, RMSNorm, cross_entropy, embed,
-                     init_normal_, linear, mlp, rmsnorm)
+                     init_normal_, linear, mlp, rmsnorm, rowwise, whole)
 from .sharding_hooks import constrain
 
 __all__ = ["COMPUTE_DTYPE", "F32_PARAMS", "LM", "Block", "layer_kinds",
@@ -277,13 +277,17 @@ def _logits(p: LM, cfg, h: torch.Tensor) -> torch.Tensor:
     h = rmsnorm(p.norm_f, h, cfg.norm_eps)
     h = constrain(h, "pre_logits")
     if cfg.tie_embeddings:
-        logits = h @ p.embed.table.to(h.dtype).T
+        logits = rowwise(_times_t, h, whole(p.embed.table.to(h.dtype)))
     else:
         logits = linear(p.unembed, h)
     if cfg.vocab_padded != cfg.vocab:   # padding columns can never win
         valid = torch.arange(cfg.vocab_padded, device=h.device) < cfg.vocab
         logits = logits.masked_fill(~valid, -1e30)
     return constrain(logits, "logits")
+
+
+def _times_t(h, table):
+    return h @ table.T
 
 
 def lm_forward(p: LM, cfg, tokens: torch.Tensor,

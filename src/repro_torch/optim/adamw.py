@@ -14,13 +14,23 @@ Unlike the JAX function, :func:`adamw_update` writes the new parameters,
 ``m`` and ``v`` into their tensors in place (under ``torch.no_grad``)
 and returns them with the new step: at granite-3-2b's size a second
 copy of parameters and moments would be another 30 GB.
-``tests/test_torch_train.py`` holds the values to the JAX update's."""
+``tests/test_torch_train.py`` holds the values to the JAX update's.
+
+DTensor parameters (the sharded steps) are updated where they lie: the
+moments mirror their placements, each leaf's m/v/p chain runs on the
+local shards, and nothing is gathered. The global norm's per-leaf sums
+are taken on the local shards, each weighted by one over the number of
+ranks that hold the same shard (the mesh dims it is replicated over),
+added in leaf order, and made whole with one ``Partial`` reduction."""
 from __future__ import annotations
 
 from typing import Dict, Mapping, NamedTuple, Tuple
 
+import math
+
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update",
            "clip_by_global_norm", "named_tensors"]
@@ -44,7 +54,9 @@ def adamw_init(params, state_dtype=torch.float32) -> AdamWState:
     dev = next(iter(named.values())).device
 
     def zeros():
-        return {k: torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+        return {k: (torch.zeros_like(p, dtype=state_dtype)
+                    if isinstance(p, DTensor) else
+                    torch.zeros(p.shape, dtype=state_dtype, device=p.device))
                 for k, p in named.items()}
 
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
@@ -56,14 +68,28 @@ def _grad(grads: Mapping, name: str, p: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(p) if g is None else g
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _global_norm(grads, names) -> torch.Tensor:
-    total = None
+    total, mesh = None, None
     for k in names:
         g = grads.get(k)
         if g is None:
             continue
-        s = torch.sum(torch.square(g.to(torch.float32)))
+        s = torch.sum(torch.square(_local(g).to(torch.float32)))
+        if isinstance(g, DTensor):
+            mesh = g.device_mesh
+            copies = math.prod(mesh.size(i) for i, p in
+                               enumerate(g.placements)
+                               if isinstance(p, Replicate))
+            if copies > 1:
+                s = s * (1.0 / copies)
         total = s if total is None else total + s
+    if mesh is not None:
+        total = DTensor.from_local(total, mesh, (Partial(),) * mesh.ndim,
+                                   run_check=False).full_tensor()
     return torch.sqrt(total)
 
 
@@ -97,8 +123,13 @@ def adamw_update(params, grads: Mapping, state: AdamWState, lr,
     c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                       device=sf.device), sf)
     for k, p in named.items():
-        m, v = state.m[k], state.v[k]
-        g32 = _grad(grads, k, p).to(torch.float32) * scale
+        g = _grad(grads, k, p)
+        if isinstance(p, DTensor):
+            if tuple(g.placements) != tuple(p.placements):
+                g = g.redistribute(p.device_mesh, p.placements)
+            p, g = p.to_local(), g.to_local()
+        m, v = _local(state.m[k]), _local(state.v[k])
+        g32 = g.to(torch.float32) * scale
         m32 = m.to(torch.float32) * b1 + (1 - b1) * g32
         v32 = v.to(torch.float32) * b2 + (1 - b2) * torch.square(g32)
         u = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)

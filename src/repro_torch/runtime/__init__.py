@@ -1,7 +1,6 @@
 """repro_torch.runtime — the port of ``repro.runtime``: the serving loop
-(``serve_loop``) and the fault-tolerant training loop (``train_loop``).
-The sharding policy (``runtime/sharding.py``) waits for the multi-card
-slice."""
+(``serve_loop``), the fault-tolerant training loop (``train_loop``) and
+the sharding rules of the mesh (``sharding``, imported by name)."""
 from .serve_loop import Request, ServeEngine
 from .train_loop import TrainLoopConfig, run_train_loop
 

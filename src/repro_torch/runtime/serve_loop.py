@@ -12,7 +12,13 @@ The decode step is an eager call (the JAX engine jits it); the engine
 serves :meth:`ModelAPI.serving_params` of the parameters it is given, so
 every weight is in the compute dtype once, before the first step.
 ``step_s`` keeps each step's wall time on the host clock, the step's
-copy of the next tokens to the host included."""
+copy of the next tokens to the host included.
+
+With a ``mesh`` the engine serves the sharded decode step
+(``launch.steps.build_decode_step(..., mesh=)``): the weights laid out
+by ``param_specs``, the cache by ``cache_pspec``, and the logits, hence
+the next tokens, whole on every rank. Every rank of the mesh runs the
+same engine on the same requests."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,18 +42,27 @@ class Request:
 
 class ServeEngine:
     def __init__(self, api, params, batch_slots: int, max_seq: int,
-                 greedy: bool = True):
+                 greedy: bool = True, mesh=None):
         self.api = api
         self.params = api.serving_params(params)
         self.device = self.params.embed.table.device
         self.B = batch_slots
         self.S = max_seq
         self.cache = api.init_cache(batch_slots, max_seq, device=self.device)
+        self._step = api.decode_step
+        if mesh is not None:
+            from ..launch import steps
+            if self.params is params:       # never shard the caller's
+                self.params = type(params)(api.cfg, device="meta")
+                self.params.load_state_dict(params.state_dict(),
+                                            assign=True)
+            steps.shard_params(self.params, api.cfg, mesh)
+            self.cache = steps.shard_cache(self.cache, mesh)
+            self._step = steps.build_decode_step(api.cfg, None, mesh=mesh)
         self.pos = np.zeros(batch_slots, np.int32)
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.queue: List[Request] = []
         self.last_token = np.zeros(batch_slots, np.int32)
-        self._step = api.decode_step
         self.step_s: List[float] = []
 
     def submit(self, req: Request):

@@ -324,5 +324,7 @@ def test_spawn_fails_when_a_rank_fails():
 
 
 def test_nccl_backend_is_not_supported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """This host has no NCCL (and no card): ``backend="nccl"`` raises,
+    naming it, before any rank starts."""
+    with pytest.raises(RuntimeError, match="NCCL"):
         p2p.spawn(_fails_on_rank_one, 2, backend="nccl")

@@ -1225,3 +1225,108 @@ def test_flash_bwd_bf16_guarded_equals_cpasync(cuda_device, hd, causal):
     ref = fb.flash_attention_bwd_plain(q, k, v, out, dout, lse, causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         _bwd_close(a, b, torch.bfloat16, f"{name} hd={hd} {causal}")
+
+
+# -- the mesh (world 1 on the one card) ----------------------------------------
+
+def _nccl_transport(rank):
+    from repro_torch.comm import p2p
+    x = torch.arange(1 << 16, dtype=torch.float32, device="cuda")
+    p2p.LOG.clear()
+    same = p2p.ppermute(x, []) is x
+    rs, ag = p2p.reduce_scatter(x), p2p.all_gather(x)
+    torch.cuda.synchronize()
+    return (same, bool(torch.equal(rs, x)), bool(torch.equal(ag, x)),
+            p2p.LOG.staged_bytes, rs.device.type)
+
+
+def test_nccl_world_one_transport(cuda_device):
+    """One NCCL rank (``spawn(backend="nccl")``): ``ppermute`` with no
+    pair moves nothing, ``reduce_scatter`` and ``all_gather`` over the
+    one rank give the tensor back exactly, on the card, with nothing
+    staged on the host."""
+    from repro_torch.comm import p2p
+    (res,) = p2p.spawn(_nccl_transport, 1, backend="nccl", timeout=300)
+    assert res == (True, True, True, 0, "cuda")
+
+
+def _local_map_kernels(rank):
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm_bwd as rb
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.runtime.sharding import placements
+    mesh = make_test_mesh((1, 1), device_type="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(2, 256, 512, device="cuda", generator=g).bfloat16()
+    s = torch.randn(512, device="cuda", generator=g).bfloat16()
+    q, k, v = (torch.randn(2, 256, 8, 64, device="cuda", generator=g)
+               .bfloat16() for _ in range(3))
+    spec = placements(("data", "model", None), mesh)
+    qspec = placements(("data", None, "model", None), mesh)
+    out = {}
+    before = (rk.launches, fa.launches, rb.launches, fb.launches)
+    dx = distribute_tensor(x, mesh, spec).requires_grad_(True)
+    y = ops.rmsnorm(dx, s, 1e-5)
+    out["rmsnorm"] = torch.equal(y.to_local(), ops.rmsnorm(x, s, 1e-5))
+    dq, dk, dv = (distribute_tensor(t, mesh, qspec).requires_grad_(True)
+                  for t in (q, k, v))
+    o = ops.flash_attention(dq, dk, dv, causal=True)
+    out["flash"] = torch.equal(o.to_local(),
+                               ops.flash_attention(q, k, v, causal=True))
+    (y.float().sum() + o.float().sum()).backward()
+    pq, pk, pv, px = (t.detach().requires_grad_(True) for t in (q, k, v, x))
+    (ops.rmsnorm(px, s, 1e-5).float().sum()
+     + ops.flash_attention(pq, pk, pv, causal=True).float().sum()
+     ).backward()
+    torch.cuda.synchronize()
+    out["grads"] = all(torch.equal(a.grad.to_local(), b.grad)
+                       for a, b in ((dx, px), (dq, pq), (dk, pk), (dv, pv)))
+    after = (rk.launches, fa.launches, rb.launches, fb.launches)
+    out["launches"] = tuple(b - a for a, b in zip(before, after))
+    return out
+
+
+def test_kernels_through_local_map_bitwise(cuda_device):
+    """On a 1×1 mesh (one NCCL rank), RMSNorm and flash attention of
+    DTensors reach the hand-written kernels through ``local_map``, forward
+    and backward, bitwise equal to the plain-tensor kernel calls: each
+    forward kernel launched three times (the DTensor call, the plain call
+    it is held to, the plain call whose gradients the DTensor's are held
+    to), each backward kernel twice."""
+    from repro_torch.comm import p2p
+    (res,) = p2p.spawn(_local_map_kernels, 1, backend="nccl", timeout=300)
+    assert res["rmsnorm"] and res["flash"] and res["grads"], res
+    assert res["launches"] == (3, 3, 2, 2), res
+
+
+def test_serve_launcher_reduced_on_the_card(cuda_device):
+    """``launch.serve --scale reduced`` (its default) on the card: heads of
+    64, a prefill on the flash kernel, and the launcher exiting 0 with
+    every request complete."""
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.launch.steps import launch_config
+    from repro_torch.models import get_model
+    cfg = launch_config("granite-3-2b", "reduced", cuda_device)
+    assert cfg.hd == 64 and cfg.d_model == 512
+    api = get_model(cfg)
+    params = api.serving_params(api.init(0, device=cuda_device))
+    before = fa.launches
+    logits = api.prefill(params, {"tokens": torch.ones(
+        (1, 64), dtype=torch.int32, device=cuda_device)})
+    torch.cuda.synchronize()
+    assert fa.launches == before + cfg.n_layers
+    assert torch.isfinite(logits).all()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "granite-3-2b", "--requests", "3", "--max-new", "4"], cwd=root,
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "completed 3/3 requests, 12 tokens generated" in r.stdout

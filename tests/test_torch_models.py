@@ -577,8 +577,11 @@ def test_serve_launcher_and_example_on_the_cpu():
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.count("-> [") == 6
     r = _run("-m", "repro_torch.launch.serve", "--arch", "granite-3-2b",
-             "--device", "cpu", "--mesh", "2x4")
-    assert r.returncode != 0 and "NotImplementedError" in r.stderr
+             "--device", "cpu", "--mesh", "1x2", "--requests", "3",
+             "--max-new", "4")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "mesh 1x2: 2 gloo ranks" in r.stdout
+    assert "completed 3/3 requests, 12 tokens generated" in r.stdout
 
 
 def test_lm_stack_imports_no_jax():

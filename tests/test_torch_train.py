@@ -641,8 +641,8 @@ def test_train_launcher_on_the_cpu(tmp_path):
     """``python -m repro_torch.launch.train`` on the CPU exits 0 with the
     JAX launcher's last line (a fresh ``--ckpt``: the launcher resumes
     from whatever it finds there; train_4k's batch and sequence cut to
-    (2, 64) for the host), then resumes from its last checkpoint; a mesh
-    of more than one device raises."""
+    (2, 64) for the host), then resumes from its last checkpoint; with
+    ``--mesh 1x2`` it trains over two gloo ranks."""
     args = ["-m", "repro_torch.launch.train", "--arch", "granite-3-2b",
             "--scale", "reduced", "--device", "cpu", "--steps", "3",
             "--ckpt", str(tmp_path), "--batch", "2", "--seq", "64"]
@@ -657,8 +657,13 @@ def test_train_launcher_on_the_cpu(tmp_path):
     assert "[train] resumed from step 3" in r.stdout
     assert "[train] done: final step 5" in r.stdout
     r = _run("-m", "repro_torch.launch.train", "--arch", "granite-3-2b",
-             "--device", "cpu", "--mesh", "2x4")
-    assert r.returncode != 0 and "NotImplementedError" in r.stderr
+             "--scale", "reduced", "--device", "cpu", "--mesh", "1x2",
+             "--steps", "1", "--batch", "2", "--seq", "64", "--ckpt",
+             str(tmp_path / "mesh"))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "mesh 1x2: 2 gloo ranks" in r.stdout
+    assert r.stdout.strip().splitlines()[-1].startswith(
+        "[train] done: final step 1, last loss ")
 
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
