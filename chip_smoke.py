@@ -197,7 +197,16 @@ on the card:
    a step, step ms, tokens/s, peak memory, and the step against
    ``launch/roofline.py``'s chips-1 row (share of the bound, model-FLOP
    share); (b) ``ServeEngine(mesh=)``: 10b's 16 requests, every token
-   equal to 10b's, step p50/p95; (c) ``python -m
+   equal to 10b's, step p50/p95; (e) the recurrent and enc-dec
+   families (``MESH_FAMILIES``), the card's memory logged first: jamba
+   at phase 11's cut, xlstm-125m and seamless whole, their sharded
+   prefill and 16 sharded decode steps on phase 11's weights and tokens,
+   every logit
+   bitwise phase 11's and the launches phase 11's; ``ServeEngine(mesh=)``
+   on xlstm-125m, every token phase 11's; one sharded train step each at
+   (2, 256) (jamba at full width cut to one period of two layers,
+   ``MESH_FAMILY_TRAIN``), loss and grad_norm bitwise the one-device
+   step's and the same launches; (c) ``python -m
    repro_torch.launch.dryrun`` for granite train_4k and decode_32k on
    the fake 16×16 mesh, on the host's CPU, started beside phase 12: ok,
    FLOPs and collective bytes, the wall; (d) one NCCL rank process: ``ppermute``,
@@ -873,8 +882,9 @@ def selected_error(out, eng, A, dev):
     return err, ref.abs().max().item(), got, ref
 
 
-def main_path(dev, setting, make, b, grid=(4, 2)):
-    """The engine's main path on one setting. The result also holds, in
+def main_path(dev, setting, make, b, grid=(4, 2), reps=3):
+    """The engine's main path on one setting, analyze and prepare timed
+    ``reps`` times each. The result also holds, in
     ``res["_state"]``, what the later phases reuse: the matrix, the
     session, its prepared values and f64 solve, and the selected blocks
     of the solve and of the dense inverse (see :func:`release`)."""
@@ -888,7 +898,7 @@ def main_path(dev, setting, make, b, grid=(4, 2)):
     # host clock around work that ends in a synchronize; analyze runs on
     # an emptied session cache each time (a hit would skip the work)
     analyze_s, prepare_s = [], []
-    for _ in range(3):
+    for _ in range(reps):
         PSelInvEngine.clear_cache()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -896,7 +906,7 @@ def main_path(dev, setting, make, b, grid=(4, 2)):
         torch.cuda.synchronize()
         analyze_s.append(time.perf_counter() - t0)
     vals = None
-    for _ in range(3):
+    for _ in range(reps):
         vals = None
         t0 = time.perf_counter()
         vals = eng.prepare_values(A)
@@ -3475,6 +3485,10 @@ def family_path(dev, arch, cut, shape, bound, steps=LM_STEPS):
                                     flips.get("plain decode", ()),
                                     f"{arch} decode, kernels vs plain")
     top = full[0, -1, :V].float().topk(2).values.tolist()
+    # what phase 13e's sharded run is held to, bitwise (host copies)
+    mesh_ref = dict(cut=cut, toks=toks.cpu(), last=last.cpu(),
+                    dec=dec.cpu(), launches_prefill=pre, per_step=per_step,
+                    frames=None if frames is None else frames.cpu())
     del pfull, pdec, full, dec, last
     _empty_cache(dev)
     prefill_ms = timed_ms(prefill, reps=reps, warm=1)
@@ -3498,7 +3512,7 @@ def family_path(dev, arch, cut, shape, bound, steps=LM_STEPS):
                plain_decode=dict(max_abs_err=err_dp, tol_used=used_dp),
                routing_flips={k: len(v) for k, v in flips.items()},
                last_top2=top, peak_bytes=peak, launches=launches,
-               rmsnorm_variants=dict(rms_variants))
+               rmsnorm_variants=dict(rms_variants), mesh_ref=mesh_ref)
     log(f"LM {arch} (reduced: {reduced or 'none, full size'}; "
         f"{n_params / 1e9:.3f} B params, {weight_bytes / 1e9:.2f} GB, init "
         f"{init_s:.1f} s): prefill {shape} {prefill_ms:.1f} ms (plain route "
@@ -4289,8 +4303,8 @@ MESH_DRYRUN_CELLS = (("granite-3-2b", "train_4k"),
 #: all_gather_into_tensor of a CUDA tensor kills the rank (SIGSEGV), while
 #: reduce_scatter_tensor, all_reduce and all_to_all_single gave the right
 #: values. DTensor gathers every weight, so there is no multi-rank mesh on
-#: one card (no phase 13e); NCCL refuses two ranks on one card. Past world
-#: 1 the sharded steps wait for several cards.
+#: one card; NCCL refuses two ranks on one card. Past world 1 the sharded
+#: steps wait for several cards.
 MULTIRANK_ON_ONE_CARD = False
 
 
@@ -4440,6 +4454,244 @@ def mesh_serve(dev, mesh, ref, serve=LM_SERVE):
     return res
 
 
+#: phase 13e: the recurrent and encoder-decoder families on the 1×1 mesh,
+#: served at phase 11's cuts (:data:`FAMILY_RUNS`: jamba 8 layers of 4
+#: experts, xlstm-125m and seamless whole) on phase 11's weights and tokens
+MESH_FAMILIES = [("jamba-1.5-large-398b", dict(n_layers=8, n_experts=4)),
+                 ("xlstm-125m", {}), ("seamless-m4t-large-v2", {})]
+#: and trained one step each at (B, S) = :data:`MESH_FAMILY_SHAPE`:
+#: xlstm-125m and seamless whole (seamless: 1.6 B f32 parameters, ~26 GB
+#: with gradients and moments); jamba at full width (d_model 8192) cut to
+#: one period of two layers — mamba + MLP, attention + MoE of 2 experts —
+#: 3.44 B bf16 parameters, ~27.5 GB with gradients and bf16 moments
+#: (phase 11's 8 layers of 4 experts would need ~128 GB)
+MESH_FAMILY_TRAIN = [
+    ("xlstm-125m", {}),
+    ("seamless-m4t-large-v2", {}),
+    ("jamba-1.5-large-398b", dict(n_layers=2, layer_group=2, attn_every=2,
+                                  n_experts=2))]
+MESH_FAMILY_SHAPE = (2, 256)
+
+
+def _counts_since(before, names=KERNELS + BWD_KERNELS):
+    after = read_counts(names)
+    return {k: after[k] - before[k] for k in names}
+
+
+def mesh_family_serve(dev, mesh, arch, cut, ref):
+    """Phase 13e, serving one family: phase 11's model (``_lm_model``, the
+    same seed and cut), its parameters sharded in place, the sharded
+    prefill of phase 11's tokens (seamless: and frames) and phase 11's
+    teacher-forced decode steps, sharded, every logit bitwise phase 11's
+    one-device run (``ref``, its ``mesh_ref``), and the launches of each
+    against phase 11's."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec
+
+    _empty_cache(dev)
+    cfg, api, params, reduced, _ = _lm_model(dev, arch, **cut)
+    steps.shard_params(params, cfg, mesh)
+    toks = ref["toks"].to(dev)
+    batch = {"tokens": toks}
+    if ref["frames"] is not None:
+        batch["frontend"] = ref["frames"].to(dev)
+    S = toks.shape[1]
+    before = read_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    last = steps.build_prefill_step(cfg, None, mesh=mesh)(params, batch)
+    _sync(dev)
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    pre = _counts_since(before, KERNELS)
+    if pre != ref["launches_prefill"]:
+        raise AssertionError(f"13e {arch} prefill launches {pre}, phase 11 "
+                             f"{ref['launches_prefill']}")
+    if not torch.equal(last.cpu(), ref["last"]):
+        err = (last.cpu().float() - ref["last"].float()).abs().max().item()
+        raise AssertionError(f"13e {arch}: sharded prefill logits differ "
+                             f"from phase 11's (max|Δ| {err:.3e})")
+    if ref["frames"] is not None:
+        with steps.sharded_context(mesh):
+            cache = encdec.encdec_init_cache(params, cfg, batch["frontend"],
+                                             S)
+    else:
+        cache = api.init_cache(1, S, device=dev)
+    cache = steps.shard_cache(cache, mesh)
+    decode = steps.build_decode_step(cfg, None, mesh=mesh)
+    out, ms = [], []
+    steps_ = ref["dec"].shape[1]
+    for t in range(steps_):
+        before = read_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        lg, cache = decode(params, toks[:, t],
+                           torch.full((1,), t, device=dev), cache)
+        _sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        per = _counts_since(before, KERNELS)
+        if per["rmsnorm"] != ref["per_step"] or per["flash_attention"]:
+            raise AssertionError(f"13e {arch} decode step {t} launches "
+                                 f"{per}, want {ref['per_step']} RMSNorm")
+        out.append(lg)
+    dec = torch.stack(out, 1).cpu()
+    if not torch.equal(dec, ref["dec"]):
+        bad = [t for t in range(steps_)
+               if not torch.equal(dec[:, t], ref["dec"][:, t])]
+        raise AssertionError(f"13e {arch}: sharded decode steps {bad} differ "
+                             "from phase 11's")
+    med = statistics.median(ms)
+    log(f"  13e {arch} (reduced: {reduced or 'none, full size'}): sharded "
+        f"prefill {tuple(toks.shape)}"
+        + ("" if ref["frames"] is None
+           else f" + {ref['frames'].shape[1]} frames")
+        + f" {prefill_ms:.1f} ms, {steps_} sharded decode steps median "
+        f"{med:.2f} ms; prefill and every decode logit bitwise phase 11's; "
+        f"launches {pre} + {ref['per_step']} RMSNorm a step")
+    del params, cache, decode
+    _empty_cache(dev)
+    return dict(arch=arch, reduced=reduced, prefill_ms=prefill_ms,
+                decode_ms=ms, decode_ms_median=med, bitwise=True,
+                launches_prefill=pre, launches_per_step=ref["per_step"])
+
+
+def mesh_family_engine(dev, mesh, served):
+    """Phase 13e, served tokens: ``ServeEngine(mesh=)`` on phase 11's
+    served model and requests (``served``, phase 11's record: xlstm-125m,
+    16 requests on 8 slots) — every token phase 11's, the RMSNorm
+    launches of every step."""
+    from repro_torch.runtime import ServeEngine
+
+    _empty_cache(dev)
+    arch = served["arch"]
+    ref_tokens = served["runs"][0]["tokens_out"]
+    cfg, api, params, _, _ = _lm_model(dev, arch)
+    per_step = lm_norms_per_step(cfg)
+    eng = ServeEngine(api, params, batch_slots=served["slots"],
+                      max_seq=served["max_seq"], mesh=mesh)
+    reqs = lm_requests(cfg, served)
+    for r in reqs:
+        eng.submit(r)
+    before = read_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    per = _counts_since(before, KERNELS)
+    steps_ = len(eng.step_s)
+    if dev.type == "cuda" and (per["rmsnorm"] != per_step * steps_
+                               or per["flash_attention"]):
+        raise AssertionError(f"13e serve {arch}: launches {per} over "
+                             f"{steps_} steps")
+    tokens = [r.out for r in reqs]
+    if tokens != ref_tokens:
+        bad = [i for i, (a, b) in enumerate(zip(tokens, ref_tokens))
+               if a != b]
+        raise AssertionError(f"13e serve {arch}: requests {bad} differ from "
+                             "phase 11's tokens")
+    ms = sorted(1e3 * t for t in eng.step_s)
+    p50 = statistics.median(ms)
+    n_tok = sum(len(t) for t in tokens)
+    log(f"  13e ServeEngine(mesh=) {arch}: {len(reqs)} requests, {n_tok} "
+        f"tokens in {steps_} steps, {wall:.2f} s (host clock), every token "
+        f"phase 11's; step p50 {p50:.2f} ms")
+    del eng, params
+    _empty_cache(dev)
+    return dict(arch=arch, steps=steps_, tokens=n_tok, wall_s=wall,
+                step_ms_p50=p50, launches=per, equal_to_11=True)
+
+
+def mesh_family_train(dev, mesh, arch, cut, shape=MESH_FAMILY_SHAPE):
+    """Phase 13e, training one family: one ``build_train_step`` step on one
+    device and one with ``mesh=``, each from the port's seeded init on
+    the pipeline's batch 0 — loss and grad_norm bitwise equal, the
+    launches equal, and every kernel of the path launched."""
+    import dataclasses
+
+    import torch
+    from repro_torch.config import ShapeConfig, get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.optim import adamw_init
+
+    _empty_cache(dev)
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, **cut)
+    reduced = ", ".join(f"{k} {getattr(base, k)}→{v}"
+                        for k, v in cut.items()) or None
+    api = get_model(cfg)
+    B, S = shape
+    batch = SyntheticTokens(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                            frontend_tokens=S if cfg.enc_layers else 0,
+                            d_model=cfg.d_model).batch_at(0)
+    tshape = ShapeConfig("train_4k", S, B, "train")
+    runs = {}
+    for where in ("one device", "mesh"):
+        params = api.train_params(api.init(0, device=dev))
+        if where == "mesh":
+            steps.shard_params(params, cfg, mesh)
+        n_params = sum(w.numel() for w in params.parameters())
+        opt = adamw_init(params, state_dtype=steps.state_dtype_of(cfg))
+        step = steps.build_train_step(cfg, tshape, dev,
+                                      mesh=mesh if where == "mesh" else None)
+        before = read_counts(KERNELS + BWD_KERNELS)
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, opt, loss, mx = step(params, opt, batch, 0)
+        _sync(dev)
+        runs[where] = dict(ms=1e3 * (time.perf_counter() - t0),
+                           loss=float(loss), grad_norm=float(mx["grad_norm"]),
+                           launches=_counts_since(before),
+                           peak_bytes=torch.cuda.max_memory_allocated())
+        del params, opt, step, loss, mx
+        _empty_cache(dev)
+    one, sh = runs["one device"], runs["mesh"]
+    attn = cfg.enc_layers or any(k.startswith("attn")
+                                 for k in layer_kinds(cfg))
+    need = ["rmsnorm", "rmsnorm_bwd"] + (
+        ["flash_attention", "flash_attention_bwd"] if attn else [])
+    log(f"  13e {arch} train (reduced: {reduced or 'none, full size'}; "
+        f"{n_params / 1e9:.3f} B params) at {shape}: one device loss "
+        f"{one['loss']!r} grad_norm {one['grad_norm']!r} in {one['ms']:.1f}"
+        f" ms; mesh loss {sh['loss']!r} grad_norm {sh['grad_norm']!r} in "
+        f"{sh['ms']:.1f} ms (first step, build included); launches "
+        f"{sh['launches']}; peak {sh['peak_bytes'] / 2**30:.2f} GiB")
+    if (sh["loss"], sh["grad_norm"]) != (one["loss"], one["grad_norm"]):
+        raise AssertionError(f"13e {arch}: the sharded step's loss and "
+                             f"grad_norm are not the one-device step's: "
+                             f"{runs}")
+    if sh["launches"] != one["launches"] or (
+            dev.type == "cuda" and not all(sh["launches"][k] for k in need)):
+        raise AssertionError(f"13e {arch}: launches {sh['launches']}, one "
+                             f"device {one['launches']}, need {need}")
+    return dict(arch=arch, reduced=reduced, shape=list(shape),
+                params=n_params, bitwise=True, **{
+                    k.replace(" ", "_"): v for k, v in runs.items()})
+
+
+def mesh_families(dev, mesh, fam):
+    """Phase 13e: the sharded steps of jamba, xlstm-125m and seamless on
+    the 1×1 mesh — prefill and decode bitwise phase 11's, xlstm-125m's
+    served tokens phase 11's, one train step each bitwise the one-device
+    step (``fam``: phase 11's result, whose ``mesh_ref`` rows it reads)."""
+    t0 = time.perf_counter()
+    card_memory(dev, "13e")
+    serve = [mesh_family_serve(dev, mesh, arch, cut, next(
+                 m["mesh_ref"] for m in fam["models"] if m["arch"] == arch
+                 and m["mesh_ref"]["cut"] == cut))
+             for arch, cut in MESH_FAMILIES]
+    engine = mesh_family_engine(dev, mesh, next(
+        s_ for s_ in fam["serve"] if s_["arch"] == "xlstm-125m"))
+    train = [mesh_family_train(dev, mesh, arch, cut)
+             for arch, cut in MESH_FAMILY_TRAIN]
+    wall = time.perf_counter() - t0
+    log(f"phase 13e (jamba, xlstm-125m, seamless on the 1×1 mesh): "
+        f"{wall:.1f} s")
+    return dict(serve=serve, engine=engine, train=train, wall_s=wall)
+
+
 def mesh_dryrun_start():
     """Phase 13c, started early: ``python -m repro_torch.launch.dryrun``
     for :data:`MESH_DRYRUN_CELLS` on the fake 16×16 production mesh, on
@@ -4532,10 +4784,26 @@ def mesh_nccl(timeout=300):
     return res
 
 
-def mesh_path(dev, lm, train, cells):
+def card_memory(dev, what):
+    """Log the card's allocated and reserved bytes at ``what``, the
+    cached blocks returned first: what the phases before it left (the
+    private pools of phase 3d's and 5's CUDA graphs stay reserved)."""
+    import torch
+    _sync(dev)
+    _empty_cache(dev)
+    if dev.type == "cuda":
+        gib = 2 ** 30
+        log(f"  card memory at {what}: "
+            f"{torch.cuda.memory_allocated() / gib:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / gib:.2f} GiB reserved")
+
+
+def mesh_path(dev, lm, fam, train, cells):
     """Phase 13: the mesh at world 1 on the card — (a) granite's sharded
-    train step against 12a, (b) sharded serving against 10b, (c) the dry
-    run (started beside phase 12: ``cells``), (d) the NCCL transport. No multi-rank step on one card
+    train step against 12a, (b) sharded serving against 10b, (e) jamba,
+    xlstm-125m and seamless against phase 11 and their one-device steps,
+    (c) the dry run (started beside phase 12: ``cells``), (d) the NCCL
+    transport. No multi-rank step on one card
     (:data:`MULTIRANK_ON_ONE_CARD`)."""
     import torch.distributed as dist
     t0 = time.perf_counter()
@@ -4549,6 +4817,10 @@ def mesh_path(dev, lm, train, cells):
         tr = mesh_train(dev, mesh, train["full"])
         sv = mesh_serve(dev, mesh, lm["serve"])
         launches = read_counts(KERNELS + BWD_KERNELS)
+        zero_counts()
+        fm = mesh_families(dev, mesh, fam)
+        launches = {k: v + read_counts(KERNELS + BWD_KERNELS)[k]
+                    for k, v in launches.items()}
     except BaseException:
         stop_cells(cells)
         raise
@@ -4558,7 +4830,7 @@ def mesh_path(dev, lm, train, cells):
     nccl = mesh_nccl()
     wall = time.perf_counter() - t0
     log(f"phase 13 (the mesh): {wall:.1f} s, main-path launches {launches}")
-    return dict(train=tr, serve=sv, dryrun=dry, nccl=nccl,
+    return dict(train=tr, serve=sv, families=fm, dryrun=dry, nccl=nccl,
                 launches=launches, wall_s=wall,
                 multirank_on_one_card=MULTIRANK_ON_ONE_CARD)
 
@@ -4623,8 +4895,10 @@ def main() -> int:
     fem["serve"] = serve_path(dev, fem["setting"], fem["_state"], 96)
     blocks = {k: fem["_state"][k] for k in ("A", "got", "ref")}
     release(fem)
+    # DG's analyze and prepare timed once (three times took ~3 minutes
+    # of host clock; the script runs close to its time limit)
     dg = main_path(dev, "dg_like(32,32,16)",
-                   lambda: sparse.dg_like_matrix(32, 32, 16), 128)
+                   lambda: sparse.dg_like_matrix(32, 32, 16), 128, reps=1)
     dg["capture"] = {}
     dg["executors"] = executor_path(dev, dg["setting"], dg["_state"], 128,
                                     captures=dg["capture"])
@@ -4647,7 +4921,9 @@ def main() -> int:
     except BaseException:
         stop_cells(cells)
         raise
-    mesh = mesh_path(dev, lm, train, cells)
+    mesh = mesh_path(dev, lm, fam, train, cells)
+    for m in fam["models"]:         # phase 13e's references, host tensors
+        del m["mesh_ref"]
     for r in rows + new_rows + lm_rows + bwd_rows:  # ptxas of each instance
         if "symbol" in r:
             lib = r.get("kernel_lib") or next(

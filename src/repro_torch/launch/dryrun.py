@@ -37,10 +37,8 @@ Each ``ok`` cell records
   whether the step's temporaries do too, the dry run cannot say.
 
 The skip rule is the JAX one (``cfg.supports_shape``: long_500k only on a
-sub-quadratic arch). A family the sharded step does not cover yet is
-recorded as ``unsupported``, with the builder's reason. The process
-group is per process: run the dry run as its own process, as the tests
-do."""
+sub-quadratic arch); every other cell is traced. The process group is
+per process: run the dry run as its own process, as the tests do."""
 from __future__ import annotations
 
 import argparse
@@ -203,10 +201,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> Dict:
     ok, why = cfg.supports_shape(shape)
     if not ok:
         return {**head, "status": "skipped", "reason": why}
-    try:
-        steps.check_sharded(cfg)
-    except NotImplementedError as e:
-        return {**head, "status": "unsupported", "reason": str(e)}
     mesh = _make_mesh(multi_pod)
     t0 = time.time()
     with FakeTensorMode(allow_non_fake_inputs=True), _as_on_the_card():

@@ -14,9 +14,10 @@ the step runs under ``sharding_policy(act_policy(mesh))``.
 return their in/out shardings. Plain tensors met inside the step
 (positions, masks) count as replicated (``implicit_replication``).
 
-The sharded path covers the decoder-only attention families (dense,
-MoE, the vision frontend); a mamba or xLSTM block or an
-encoder-decoder raises ``NotImplementedError`` (ROADMAP Queue 1)."""
+The sharded path covers every config: the attention and MoE decoders,
+jamba's mamba blocks, the xLSTM blocks and the encoder-decoder (whose
+batch carries the encoder's frames, and whose decode cache, from
+``encdec_init_cache``, :func:`shard_cache` lays out as a dict)."""
 from __future__ import annotations
 
 import contextlib
@@ -35,8 +36,7 @@ from ..runtime.sharding import (act_policy, batch_specs, cache_pspec,
 
 __all__ = ["launch_config", "build_train_step", "build_prefill_step", "build_decode_step",
            "input_specs", "state_dtype_of", "step_shardings",
-           "shard_params", "shard_batch", "shard_cache", "sharded_context",
-           "check_sharded"]
+           "shard_params", "shard_batch", "shard_cache", "sharded_context"]
 
 
 def _meta(shape, dtype):
@@ -81,16 +81,6 @@ def state_dtype_of(cfg) -> torch.dtype:
 
 # -- the mesh -------------------------------------------------------------------
 
-def check_sharded(cfg) -> None:
-    """Raise for a config the sharded step does not cover yet."""
-    kinds = set(tfm.layer_kinds(cfg)) if not cfg.enc_layers else set()
-    if cfg.enc_layers or any(not k.startswith("attn+") for k in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded step covers the attention decoders "
-            "(dense and MoE); mamba, xLSTM and encoder-decoder blocks wait "
-            "(ROADMAP Queue 1)")
-
-
 def step_shardings(cfg, shape, mesh) -> Dict:
     """The spec trees of the step's inputs (the JAX builders' in/out
     shardings, as specs): ``params`` (and the AdamW moments, which mirror
@@ -126,14 +116,18 @@ def _distribute(t: torch.Tensor, mesh, spec):
 def shard_params(params, cfg, mesh):
     """Replace every parameter of the module ``params`` (the same values
     on every rank) by its DTensor per ``param_specs``, in place, keeping
-    ``requires_grad``; returns ``params``."""
+    ``requires_grad``; returns ``params``. Each whole parameter is freed
+    as its DTensor replaces it, so the module never takes more than its
+    own size and one parameter's shard."""
     specs = param_specs(params, cfg, mesh)
-    for name, w in list(params.named_parameters()):
+    for name in specs:
         mod_name, leaf = name.rpartition(".")[::2]
         mod = params.get_submodule(mod_name)
+        w = getattr(mod, leaf)
         setattr(mod, leaf, torch.nn.Parameter(
             _distribute(w.detach(), mesh, specs[name]),
             requires_grad=w.requires_grad))
+        del w
     return params
 
 
@@ -146,10 +140,21 @@ def shard_batch(batch: Dict, mesh, device) -> Dict:
 
 
 def shard_cache(cache, mesh):
-    """A decode cache (the tuple of dicts of ``init_cache``) as DTensors
-    per ``cache_pspec``."""
-    return tuple({k: _distribute(v, mesh, cache_pspec(tuple(v.shape), mesh))
-                  for k, v in entry.items()} for entry in cache)
+    """A decode cache — the tuple of dicts of ``init_cache``, or the
+    enc-dec's dict of ``encdec_init_cache`` — as DTensors per
+    ``cache_pspec``: a whole tensor keeps its shard, a DTensor (the cross
+    K/V of sharded parameters) is redistributed."""
+    from torch.distributed.tensor import DTensor
+
+    def lay(t):
+        spec = cache_pspec(tuple(t.shape), mesh)
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, placements(spec, mesh))
+        return _distribute(t, mesh, spec)
+
+    if isinstance(cache, dict):
+        return {k: lay(v) for k, v in cache.items()}
+    return tuple({k: lay(v) for k, v in entry.items()} for entry in cache)
 
 
 @contextlib.contextmanager
@@ -183,7 +188,6 @@ def build_train_step(cfg, shape, device="cuda", peak_lr: float = 3e-4,
     back whole on every rank."""
     api = get_model(cfg)
     if mesh is not None:
-        check_sharded(cfg)
         device = mesh.device_type
     dev = resolve_device(device)
 
@@ -215,7 +219,6 @@ def build_prefill_step(cfg, shape, device="cuda", mesh=None):
     every rank with ``mesh``)."""
     api = get_model(cfg)
     if mesh is not None:
-        check_sharded(cfg)
         device = mesh.device_type
     dev = resolve_device(device)
 
@@ -235,7 +238,6 @@ def build_decode_step(cfg, shape, device="cuda", mesh=None):
     written in place, and the logits come back whole on every rank."""
     api = get_model(cfg)
     if mesh is not None:
-        check_sharded(cfg)
         device = mesh.device_type
     dev = resolve_device(device)
 

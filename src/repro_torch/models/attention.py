@@ -15,7 +15,8 @@ take: it runs as plain torch ops (:func:`_cross`) with the JAX
 ``_flash`` numerics — q scaled in bf16, bf16 scores taken to f32, the
 probabilities cast to bf16 before the PV product — never causal. Only q
 is projected (JAX projects k and v too and discards them); no RoPE or
-k-norm touches the given K/V.
+k-norm touches the given K/V. On DTensors each rank attends its own
+queries over the encoder sequence gathered whole (:func:`_cross_sharded`).
 
 Decode (:func:`decode_attention`) attends one new token against the KV
 cache with einsum and softmax, as the JAX package does outside any
@@ -118,17 +119,40 @@ def _cross(q, k, v):
     return out.to(q.dtype)
 
 
+def _cross_sharded(q, k, v):
+    """:func:`_cross` of DTensors on each rank's queries: q keeps its
+    batch and query-sequence shards, k and v are gathered whole along the
+    encoder sequence for those batch rows; their gradients are sums over
+    the ranks whose queries differ."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    qpl = tuple(p if isinstance(p, Shard) and p.dim in (0, 1)
+                else Replicate() for p in q.placements)
+    kvpl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in qpl)
+    grad_kv = tuple(Partial() if isinstance(p, Shard) and p.dim == 1
+                    else p for p in qpl)
+    q = q.redistribute(mesh, qpl)
+    k, v = (t.redistribute(mesh, kvpl) for t in (k, v))
+    return local_map(_cross, out_placements=list(qpl),
+                     in_placements=(qpl, kvpl, kvpl),
+                     in_grad_placements=(qpl, grad_kv, grad_kv),
+                     device_mesh=mesh)(q, k, v)
+
+
 def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
               causal: bool = True, kv_override=None) -> torch.Tensor:
     """Full-sequence attention (prefill, encoder); with ``kv_override =
     (k, v)`` cross-attention over them, never causal."""
     if kv_override is not None:                 # cross-attention
-        out = _cross(_project_q(p, cfg, x, positions), *kv_override)
+        q = _project_q(p, cfg, x, positions)
+        out = (_cross_sharded(q, *kv_override) if isinstance(q, DTensor)
+               else _cross(q, *kv_override))
     else:
         q, k, v = _project_qkv(p, cfg, x, positions)
         out = _flash(q, k, v, causal)
-        if isinstance(out, DTensor):         # back to x's rows
-            out = out.redistribute(x.device_mesh, x.placements)
+    out = layers.laid_out_as(out, x)            # back to x's rows
     B, S = x.shape[:2]
     return linear(p.wo, out.reshape(B, S, cfg.n_heads * cfg.hd))
 
@@ -176,19 +200,6 @@ def decode_attention(p: Attention, cfg, x: torch.Tensor, pos: torch.Tensor,
     return linear(p.wo, out), k_cache, v_cache
 
 
-def _shard_range(size: int, mesh, placements, dim: int) -> Tuple[int, int]:
-    """(first index, length) of this rank's shard of dim ``dim`` (of
-    ``size``, which every sharding mesh dim divides), sharded left to
-    right over the mesh dims that name it."""
-    coord = mesh.get_coordinate()
-    first, n = 0, size
-    for i, p in enumerate(placements):
-        if isinstance(p, Shard) and p.dim == dim:
-            n //= mesh.size(i)
-            first += coord[i] * n
-    return first, n
-
-
 def _decode_sharded(cfg, q, k_new, v_new, pos, k_cache, v_cache, dtype):
     """The decode attention on DTensors: q, the new K/V and ``pos`` are
     laid out as the cache's batch rows; each rank writes its rows' new
@@ -206,7 +217,7 @@ def _decode_sharded(cfg, q, k_new, v_new, pos, k_cache, v_cache, dtype):
                             .redistribute(mesh, rows).to_local()
                             for t in (q, k_new, v_new, pos))
     S = k_cache.shape[1]
-    first, n = _shard_range(S, mesh, k_cache.placements, 1)
+    first, n = layers.shard_range(k_cache, 1)
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
         loc = cache.to_local()
         rel = pos - first

@@ -14,18 +14,30 @@ cross K/V of the encoder output, (L, B, S_enc, KV, hd).
 
 As in the JAX package, neither the forward nor the decode step masks the
 padded vocabulary columns (``encdec.py:112``, ``:184``): seamless pads
-256206 → 256256, and a padding column can win a greedy argmax."""
+256206 → 256256, and a padding column can win a greedy argmax.
+
+On a mesh (DTensor parameters and batch, the sharded steps) the encoder
+and decoder blocks run as the decoder-only ones, the cross-attention on
+each rank's queries over the gathered encoder sequence; with sharded
+parameters :func:`encdec_init_cache` takes the frames whole on every rank
+(the ``hidden`` policy, when active, lays them out) and
+``launch.steps.shard_cache`` lays its cache out by ``cache_pspec``. A
+decode step attends each rank's batch rows over the cross K/V gathered
+whole along the encoder sequence."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import functools
+
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from . import attention as attn_mod
 from .attention import Attention
 from .layers import (MLP, Embed, Linear, RMSNorm, cross_entropy, embed,
-                     linear, mlp, rmsnorm)
+                     laid_out_as, linear, mlp, on_rows, rmsnorm)
 from .sharding_hooks import constrain
 from .transformer import (COMPUTE_DTYPE, param_dtype_of, remat_active,
                           run_remat)
@@ -167,15 +179,31 @@ def encdec_init_cache(p: EncDec, cfg, frames: torch.Tensor, seq: int
     """Run the encoder and precompute every decoder layer's cross K/V
     (the serving prefill, ``encdec.py:133-148``); the self-attention
     cache is zeros of ``seq`` positions."""
-    dev = p.embed.table.device
-    memory = encode(p, cfg, torch.as_tensor(frames, device=dev).to(
-        COMPUTE_DTYPE))
+    table = p.embed.table
+    dev = table.device
+    frames = torch.as_tensor(frames, device=dev)
+    if isinstance(table, DTensor):        # sharded parameters
+        frames = DTensor.from_local(frames, table.device_mesh,
+                                    (Replicate(),) * table.device_mesh.ndim,
+                                    run_check=False)
+    memory = encode(p, cfg, frames.to(COMPUTE_DTYPE))
     B = memory.shape[0]
     ck, cv = zip(*(_cross_kv(bp, cfg, memory) for bp in p.dec))
     shape = (cfg.n_layers, B, seq, cfg.n_kv_heads, cfg.hd)
     return {"self_k": torch.zeros(shape, dtype=memory.dtype, device=dev),
             "self_v": torch.zeros(shape, dtype=memory.dtype, device=dev),
             "cross_k": torch.stack(ck), "cross_v": torch.stack(cv)}
+
+
+def _cross_step(cfg, q, ck, cv):
+    """One query a row against the encoder's cross K/V: q (B,1,H,hd),
+    ck/cv (B,S_enc,KV,hd) → (B,1,H·hd)."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B = q.shape[0]
+    qr = q.reshape(B, KV, H // KV, hd) * hd ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", qr, ck).to(torch.float32)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bkgs,bskd->bkgd", w, cv).reshape(B, 1, H * hd)
 
 
 def encdec_decode_step(p: EncDec, cfg, token: torch.Tensor,
@@ -185,8 +213,6 @@ def encdec_decode_step(p: EncDec, cfg, token: torch.Tensor,
     the self cache is written in place. Returns (logits (B,
     vocab_padded), cache)."""
     h = embed(p.embed, token[:, None], COMPUTE_DTYPE)
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    G = H // KV
     B = h.shape[0]
     for l, bp in enumerate(p.dec):
         x = rmsnorm(bp.norm1, h, cfg.norm_eps)
@@ -196,15 +222,11 @@ def encdec_decode_step(p: EncDec, cfg, token: torch.Tensor,
         h = h + y
         x = rmsnorm(bp.normx, h, cfg.norm_eps)
         # cross attention: one query against the fixed encoder memory
-        q = linear(bp.cross.wq, x).reshape(B, 1, H, hd)
+        q = linear(bp.cross.wq, x).reshape(B, 1, cfg.n_heads, cfg.hd)
         if cfg.qk_norm:
             q = rmsnorm(bp.cross.qnorm, q, cfg.norm_eps)
-        qr = q.reshape(B, KV, G, hd) * hd ** -0.5
-        s = torch.einsum("bkgd,bskd->bkgs", qr,
-                         cache["cross_k"][l]).to(torch.float32)
-        w = torch.softmax(s, dim=-1).to(x.dtype)
-        y = torch.einsum("bkgs,bskd->bkgd", w, cache["cross_v"][l]).reshape(
-            B, 1, H * hd)
+        y = laid_out_as(on_rows(functools.partial(_cross_step, cfg), q,
+                                cache["cross_k"][l], cache["cross_v"][l]), h)
         h = h + linear(bp.cross.wo, y)
         x = rmsnorm(bp.norm2, h, cfg.norm_eps)
         h = h + mlp(bp.ffn, x, cfg.act)

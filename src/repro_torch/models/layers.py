@@ -27,6 +27,11 @@ activation's dtype and gathered whole on every rank at its use — the
 all-gather of ZeRO-3 — so that a product splits its rows the way the
 activation does (batch over data, sequence or heads over model), and its
 gradient comes back to the parameter's shards as a reduce-scatter.
+:func:`on_rows` and :func:`stepwise` are the recurrent mixers' layouts
+(mamba, mLSTM, sLSTM): a scan needs every position of a row, so each rank
+runs it on its batch rows with the sequence (and, in a decode step, every
+state) gathered whole, and a decode step writes back its own shard of
+each state, in place.
 
 :func:`plain_kernels` is a test-only switch: inside it, RMSNorm and flash
 attention run their plain PyTorch versions on any device. It is off by
@@ -46,7 +51,8 @@ from ..kernels.ref import rmsnorm_ref
 
 __all__ = ["RMSNorm", "Linear", "MLP", "Embed", "rmsnorm", "linear",
            "rope_freqs", "apply_rope", "mlp", "embed", "cross_entropy",
-           "plain_kernels", "plain_route", "whole", "rowwise"]
+           "plain_kernels", "plain_route", "whole", "rowwise", "batch_rows",
+           "laid_out_as", "to_rows", "on_rows", "stepwise", "shard_range"]
 
 _PLAIN = False
 
@@ -135,17 +141,94 @@ def rowwise(fn, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     and a sequence sharded over two mesh dims."""
     if not isinstance(x, DTensor):
         return fn(x, w)
+    return _row_map(fn, (x,), kops.row_placements(x), (w,))
+
+
+def batch_rows(x: DTensor) -> tuple:
+    """``x``'s placements with the shards of its batch (dim 0) kept and
+    every other dim whole: each rank holds whole rows of its batch."""
+    return tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in x.placements)
+
+
+def laid_out_as(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y`` itself; a DTensor redistributed to ``x``'s placements."""
+    if isinstance(y, DTensor):
+        return y.redistribute(x.device_mesh, x.placements)
+    return y
+
+
+def to_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself; a DTensor laid out as :func:`batch_rows`."""
+    if isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, batch_rows(x))
+    return x
+
+
+def on_rows(fn, *xs: torch.Tensor, ws=()) -> torch.Tensor:
+    """``fn(*xs, *ws)`` on whole sequences. For DTensors: on each rank's
+    batch rows of every ``x`` (:func:`batch_rows` of the first, the
+    sequence gathered) with every ``w`` whole, the result laid out as
+    those rows and each ``w``'s gradient a sum over the ranks whose rows
+    differ."""
+    if not isinstance(xs[0], DTensor):
+        return fn(*xs, *ws)
+    return _row_map(fn, xs, batch_rows(xs[0]), tuple(whole(w) for w in ws))
+
+
+def _row_map(fn, xs: tuple, pl: tuple, ws: tuple) -> DTensor:
     from torch.distributed.tensor.experimental import local_map
-    mesh = x.device_mesh
-    pl = kops.row_placements(x)
-    x = x.redistribute(mesh, pl)
+    mesh = xs[0].device_mesh
+    xs = tuple(x.redistribute(mesh, pl) for x in xs)
     whole_pl = (Replicate(),) * mesh.ndim
     grad_w = tuple(Partial() if isinstance(p, Shard) else Replicate()
                    for p in pl)
+    n, m = len(xs), len(ws)
     return local_map(fn, out_placements=list(pl),
-                     in_placements=(pl, whole_pl),
-                     in_grad_placements=(pl, grad_w),
-                     device_mesh=mesh)(x, w)
+                     in_placements=(pl,) * n + (whole_pl,) * m,
+                     in_grad_placements=(pl,) * n + (grad_w,) * m,
+                     device_mesh=mesh)(*xs, *ws)
+
+
+def shard_range(t: DTensor, dim: int):
+    """(first index, length) of this rank's shard of ``t``'s dim ``dim``
+    (which every mesh dim sharding it divides), sharded left to right
+    over the mesh dims that name it."""
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    first, n = 0, t.shape[dim]
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n //= mesh.size(i)
+            first += coord[i] * n
+    return first, n
+
+
+def stepwise(fn, state: dict, *xs: torch.Tensor, ws=()):
+    """One decode step ``fn(state, *xs, *ws) -> (y, new state)`` of a
+    recurrent mixer. Plain tensors: ``fn`` itself. A DTensor ``state``
+    (``cache_pspec``: batch over data, its longest other dim over model)
+    is read and written back in place, shard by shard: each rank runs
+    ``fn`` on its batch rows of every entry, gathered whole, and of every
+    ``x``, with every ``w`` whole, then writes its own shard of each new
+    entry into ``state``. Returns ``y`` (a DTensor of those rows) and
+    ``state`` itself."""
+    first = next(iter(state.values()))
+    if not isinstance(first, DTensor):
+        return fn(state, *xs, *ws)
+    mesh = first.device_mesh
+    rows = batch_rows(first)
+    local = {k: v.redistribute(mesh, rows).to_local()
+             for k, v in state.items()}
+    y, new = fn(local, *(x.redistribute(mesh, rows).to_local()
+                         for x in xs), *(whole(w).to_local() for w in ws))
+    for k, v in state.items():
+        block = [slice(None)] * v.ndim
+        for d in range(1, v.ndim):
+            a, n = shard_range(v, d)
+            block[d] = slice(a, a + n)
+        v.to_local().copy_(new[k][tuple(block)])
+    return DTensor.from_local(y, mesh, rows, run_check=False), state
 
 
 # -- RoPE -------------------------------------------------------------------

@@ -20,16 +20,24 @@ between them as between chunks. At jamba's width (di = 16384, ds = 16)
 a sub-block is 16 positions (268 MB of weights).
 
 The A_log parameter is f32 and ``dt_bias`` is used in f32
-(``mamba.py:31``, ``:96``): both stay f32 in the serving model."""
+(``mamba.py:31``, ``:96``): both stay f32 in the serving model.
+
+On a mesh (a DTensor hidden, the sharded steps) the scan needs each
+row's whole sequence: the mixer runs on each rank's batch rows with the
+sequence gathered and every weight whole (``layers.on_rows``) and its
+output goes back to the hidden's placement; the decode step reads its
+``ssm``/``conv`` state rows whole and writes its own shard back in place
+(``layers.stepwise``). Both run the same function as one device."""
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Linear, _param, linear
+from .layers import Linear, _param, laid_out_as, on_rows, stepwise
 
 __all__ = ["Mamba", "mamba", "mamba_decode", "mamba_state_spec",
            "SEGMENT_BYTES"]
@@ -99,30 +107,46 @@ def _ssm_scan(u, dt, A_log, Bc, Cc, chunk: int = _MAMBA_CHUNK):
     return torch.cat(ys, dim=1)
 
 
-def mamba(p: Mamba, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward. x: (B,S,D) (``mamba.py:77-101``)."""
-    B, S, D = x.shape
+def _weights(p: Mamba, dtype) -> tuple:
+    """The mixer's weights as its functions take them: in ``dtype``, save
+    ``dt_bias`` and ``A_log`` in f32."""
+    f32 = torch.float32
+    return (p.in_proj.w.to(dtype), p.conv_w.to(dtype), p.x_proj.w.to(dtype),
+            p.dt_bias.to(f32), p.A_log.to(f32), p.D.to(dtype),
+            p.out_proj.w.to(dtype))
+
+
+def _mamba_rows(cfg, x, w_in, conv_w, w_x, dt_bias, A_log, D, w_out):
+    """The full-sequence mixer on whole rows x (B, S, D)
+    (``mamba.py:77-101``)."""
+    S = x.shape[1]
     dc = cfg.mamba_d_conv
     ds = cfg.mamba_d_state
-    u, z = torch.chunk(linear(p.in_proj, x), 2, dim=-1)       # (B,S,di)
+    u, z = torch.chunk(x @ w_in, 2, dim=-1)                   # (B,S,di)
 
     # depthwise causal conv1d, summed tap by tap in x's dtype as JAX does
     pad = F.pad(u, (0, 0, dc - 1, 0))
-    conv = pad[:, 0:S] * p.conv_w[0].to(x.dtype)
+    conv = pad[:, 0:S] * conv_w[0]
     for i in range(1, dc):
-        conv = conv + pad[:, i:i + S] * p.conv_w[i].to(x.dtype)
+        conv = conv + pad[:, i:i + S] * conv_w[i]
     u = F.silu(conv)
 
-    bcd = linear(p.x_proj, u)
+    bcd = u @ w_x
     Bc, Cc, dt = bcd[..., :ds], bcd[..., ds:2 * ds], bcd[..., 2 * ds:]
     # one selective dt a position, a learned bias per channel, in f32
-    dt = F.softplus(dt.to(torch.float32)
-                    + p.dt_bias.to(torch.float32)[None, None, :])
-    y = _ssm_scan(u.to(torch.float32), dt, p.A_log.to(torch.float32),
-                  Bc.to(torch.float32), Cc.to(torch.float32))
-    y = y.to(x.dtype) + u * p.D.to(x.dtype)
+    dt = F.softplus(dt.to(torch.float32) + dt_bias[None, None, :])
+    y = _ssm_scan(u.to(torch.float32), dt, A_log, Bc.to(torch.float32),
+                  Cc.to(torch.float32))
+    y = y.to(x.dtype) + u * D
     y = y * F.silu(z)
-    return linear(p.out_proj, y)
+    return y @ w_out
+
+
+def mamba(p: Mamba, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence forward. x: (B,S,D) (``mamba.py:77-101``); a DTensor
+    on each rank's whole rows, back on x's placement."""
+    return laid_out_as(on_rows(functools.partial(_mamba_rows, cfg), x,
+                               ws=_weights(p, x.dtype)), x)
 
 
 def mamba_state_spec(cfg, batch: int) -> Dict[str, tuple]:
@@ -133,26 +157,34 @@ def mamba_state_spec(cfg, batch: int) -> Dict[str, tuple]:
             "conv": (batch, cfg.mamba_d_conv - 1, di)}
 
 
-def mamba_decode(p: Mamba, cfg, x: torch.Tensor, state: Dict
-                 ) -> Tuple[torch.Tensor, Dict]:
-    """Single-token step. x: (B,1,D) (``mamba.py:113-138``). Returns
-    (out, new state); ``state`` is not written."""
+def _mamba_step(cfg, state, x, w_in, conv_w, w_x, dt_bias, A_log, D,
+                w_out):
+    """One token on whole rows x (B,1,D) (``mamba.py:113-138``): (out,
+    new state)."""
     ds = cfg.mamba_d_state
-    u, z = torch.chunk(linear(p.in_proj, x)[:, 0], 2, dim=-1)   # (B,di)
+    u, z = torch.chunk((x @ w_in)[:, 0], 2, dim=-1)              # (B,di)
 
     win = torch.cat([state["conv"], u[:, None]], dim=1)         # (B,dc,di)
-    conv = torch.einsum("bcd,cd->bd", win, p.conv_w.to(x.dtype))
+    conv = torch.einsum("bcd,cd->bd", win, conv_w)
     u = F.silu(conv)
 
-    bcd = u @ p.x_proj.w.to(x.dtype)
+    bcd = u @ w_x
     Bc, Cc, dt = bcd[..., :ds], bcd[..., ds:2 * ds], bcd[..., 2 * ds:]
-    dt = F.softplus(dt.to(torch.float32)
-                    + p.dt_bias.to(torch.float32)[None, :])
-    dA = torch.exp(dt[..., None] * (-torch.exp(p.A_log))[None])  # (B,di,ds)
+    dt = F.softplus(dt.to(torch.float32) + dt_bias[None, :])
+    dA = torch.exp(dt[..., None] * (-torch.exp(A_log))[None])   # (B,di,ds)
     h = state["ssm"] * dA + (dt * u.to(torch.float32))[..., None] \
         * Bc.to(torch.float32)[:, None, :]
     y = torch.einsum("bdn,bn->bd", h, Cc.to(torch.float32))
-    y = y.to(x.dtype) + u * p.D.to(x.dtype)
+    y = y.to(x.dtype) + u * D
     y = y * F.silu(z)
-    out = (y @ p.out_proj.w.to(x.dtype))[:, None]
+    out = (y @ w_out)[:, None]
     return out, {"ssm": h, "conv": win[:, 1:]}
+
+
+def mamba_decode(p: Mamba, cfg, x: torch.Tensor, state: Dict
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """Single-token step. x: (B,1,D) (``mamba.py:113-138``). Returns
+    (out, state): plain, a new state (``state`` is not written); DTensor,
+    ``state`` itself, written in place."""
+    return stepwise(functools.partial(_mamba_step, cfg), state, x,
+                    ws=_weights(p, x.dtype))

@@ -388,7 +388,9 @@ def lm_decode_step(p: LM, cfg, token: torch.Tensor, pos: torch.Tensor,
     """One serving step. token: (B,) int; pos: (B,) current position;
     cache as from :func:`init_cache`, updated in place: the KV cache is
     written by the attention, each new recurrent state is copied into its
-    group slot. Returns (logits (B, vocab_padded), cache)."""
+    group slot (a sharded cache's states are written in place by their
+    mixers, ``layers.stepwise``). Returns (logits (B, vocab_padded),
+    cache)."""
     g = cfg.layer_group
     h = embed(p.embed, token[:, None], COMPUTE_DTYPE)       # (B,1,D)
     for l, blk in enumerate(p.blocks):

@@ -15,16 +15,27 @@ over the whole tensor — batch, positions and heads (``xlstm.py:104``).
 In a decode step that is a max over every slot of the batch, so a
 request's output depends on the other slots, and prefill and decode use
 different stabilisers: the JAX package's own decode does not reproduce
-its forward exactly. The port mirrors both."""
+its forward exactly. The port mirrors both.
+
+On a mesh (a DTensor hidden, the sharded steps) each block runs on the
+batch rows of its input with the sequence gathered (``layers.to_rows``):
+the projections as the dense layers' products, the chunk scan and the
+sLSTM loop on each rank's rows (``layers.on_rows``), the decode steps'
+states read and written back shard by shard (``layers.stepwise``). The
+stabiliser stays the whole tensor's: ``i_raw.max()`` of a DTensor is a
+max over every rank's rows, an all-reduce across the data ranks, as
+under GSPMD in the JAX package."""
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Linear, _param, linear
+from .layers import (Linear, _param, laid_out_as, linear, on_rows,
+                     stepwise, to_rows)
 
 __all__ = ["MLSTM", "SLSTM", "mlstm", "mlstm_decode", "mlstm_state_spec",
            "slstm", "slstm_decode", "slstm_init_state", "slstm_state_spec"]
@@ -115,11 +126,13 @@ def _gates(p: MLSTM, cfg, x):
 
 def mlstm(p: MLSTM, cfg, x: torch.Tensor) -> torch.Tensor:
     B, S, _ = x.shape
-    q, k, v, log_i, log_f = _gates(p, cfg, x)
-    y = _mlstm_chunk_scan(q, k, v, log_i, log_f, cfg.xlstm_chunk)
+    xr = to_rows(x)
+    q, k, v, log_i, log_f = _gates(p, cfg, xr)
+    y = on_rows(functools.partial(_mlstm_chunk_scan, chunk=cfg.xlstm_chunk),
+                q, k, v, log_i, log_f)
     y = y.to(x.dtype).reshape(B, S, cfg.n_heads * cfg.hd)
-    o = torch.sigmoid(linear(p.ogate, x))
-    return linear(p.wo, y * o)
+    o = torch.sigmoid(linear(p.ogate, xr))
+    return laid_out_as(linear(p.wo, y * o), x)
 
 
 def mlstm_state_spec(cfg, batch: int) -> Dict[str, tuple]:
@@ -127,23 +140,31 @@ def mlstm_state_spec(cfg, batch: int) -> Dict[str, tuple]:
     return {"C": (batch, h, hd, hd), "n": (batch, h, hd)}
 
 
-def mlstm_decode(p: MLSTM, cfg, x: torch.Tensor, state: Dict
-                 ) -> Tuple[torch.Tensor, Dict]:
-    """x: (B,1,D) (``xlstm.py:122-138``). Returns (out, new state)."""
-    B = x.shape[0]
-    q, k, v, log_i, log_f = _gates(p, cfg, x)
-    q, k, v = q[:, 0], k[:, 0], v[:, 0]                     # (B,H,hd)
-    li, lf = log_i[:, 0], log_f[:, 0]                       # (B,H)
+def _mlstm_step(state, q, k, v, li, lf, hd: int):
+    """One token of the matrix memory on whole rows: q/k/v (B,H,hd),
+    li/lf (B,H) → (y (B,H,hd), new state)."""
     f = torch.exp(lf)[..., None, None]
     i = torch.exp(li)[..., None, None]
     C = state["C"] * f + i * torch.einsum("bhd,bhe->bhde", k, v)
     n = state["n"] * f[..., 0] + i[..., 0] * k
-    qs = q * cfg.hd ** -0.5
+    qs = q * hd ** -0.5
     denom = torch.clamp(torch.einsum("bhd,bhd->bh", qs, n).abs(), min=1.0)
     y = torch.einsum("bhd,bhde->bhe", qs, C) / denom[..., None]
-    y = y.to(x.dtype).reshape(B, 1, cfg.n_heads * cfg.hd)
+    return y, {"C": C, "n": n}
+
+
+def mlstm_decode(p: MLSTM, cfg, x: torch.Tensor, state: Dict
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B,1,D) (``xlstm.py:122-138``). Returns (out, state): plain, a
+    new state; DTensor, ``state`` itself, written in place."""
+    B = x.shape[0]
+    q, k, v, log_i, log_f = _gates(p, cfg, x)
+    y, state = stepwise(functools.partial(_mlstm_step, hd=cfg.hd), state,
+                        q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
+                        log_f[:, 0])
+    y = laid_out_as(y.to(x.dtype).reshape(B, 1, cfg.n_heads * cfg.hd), x)
     o = torch.sigmoid(linear(p.ogate, x))
-    return linear(p.wo, y * o), {"C": C, "n": n}
+    return linear(p.wo, y * o), state
 
 
 # ---------------------------------------------------------------------------
@@ -162,11 +183,11 @@ class SLSTM(nn.Module):
         self.wo = Linear(h * hd, d, dtype, device)
 
 
-def _slstm_cell(p: SLSTM, cfg, xg, state):
-    """One step. xg: (B,H,4·hd) pre-activations from x
-    (``xlstm.py:156-171``)."""
+def _slstm_cell(state, xg, wr):
+    """One step. xg: (B,H,4·hd) pre-activations from x, wr in their
+    dtype (``xlstm.py:156-171``). Returns (h, new state)."""
     h_, c, n, m = state["h"], state["c"], state["n"], state["m"]
-    rec = torch.einsum("bhd,hde->bhe", h_, p.wr.to(h_.dtype))
+    rec = torch.einsum("bhd,hde->bhe", h_, wr)
     g = (xg + rec).to(torch.float32)
     z, i_raw, f_raw, o_raw = torch.chunk(g, 4, dim=-1)
     log_f = -F.softplus(-f_raw)
@@ -180,18 +201,25 @@ def _slstm_cell(p: SLSTM, cfg, xg, state):
     return hh, {"h": hh, "c": c_new, "n": n_new, "m": m_new}
 
 
+def _slstm_scan(cfg, xg, wr):
+    """The time scan on whole rows: xg (B,S,H,4·hd) → h (B,S,H,hd)."""
+    state = slstm_init_state(cfg, xg.shape[0], xg.dtype, xg.device)
+    hs = []
+    for t in range(xg.shape[1]):
+        hh, state = _slstm_cell(state, xg[:, t], wr)
+        hs.append(hh)
+    return torch.stack(hs, dim=1)
+
+
 def slstm(p: SLSTM, cfg, x: torch.Tensor) -> torch.Tensor:
     """The time scan (``xlstm.py:174-186``): one cell a position."""
     B, S, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
-    xg = linear(p.wx, x).reshape(B, S, h, 4 * hd)
-    state = slstm_init_state(cfg, B, x.dtype, x.device)
-    hs = []
-    for t in range(S):
-        hh, state = _slstm_cell(p, cfg, xg[:, t], state)
-        hs.append(hh)
-    y = torch.stack(hs, dim=1).reshape(B, S, h * hd)
-    return linear(p.wo, y)
+    xr = to_rows(x)
+    xg = linear(p.wx, xr).reshape(B, S, h, 4 * hd)
+    y = on_rows(functools.partial(_slstm_scan, cfg), xg,
+                ws=(p.wr.to(x.dtype),))
+    return laid_out_as(linear(p.wo, y.reshape(B, S, h * hd)), x)
 
 
 def slstm_init_state(cfg, batch: int, dtype, device=None) -> Dict:
@@ -212,8 +240,11 @@ def slstm_state_spec(cfg, batch: int) -> Dict[str, tuple]:
 
 def slstm_decode(p: SLSTM, cfg, x: torch.Tensor, state: Dict
                  ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B,1,D). Returns (out, state): plain, a new state; DTensor,
+    ``state`` itself, written in place."""
     B = x.shape[0]
     h, hd = cfg.n_heads, cfg.hd
     xg = linear(p.wx, x)[:, 0].reshape(B, h, 4 * hd)
-    hh, state = _slstm_cell(p, cfg, xg, state)
-    return linear(p.wo, hh.reshape(B, 1, h * hd)), state
+    hh, state = stepwise(_slstm_cell, state, xg, ws=(p.wr.to(x.dtype),))
+    hh = laid_out_as(hh.reshape(B, 1, h * hd), x)
+    return linear(p.wo, hh), state

@@ -18,7 +18,10 @@ repeated bitwise, and the f32 weights of the serving model; and the
 training path's backward kernels (RMSNorm, flash attention on both its
 routes) against their plain versions, bitwise repeatable, the flash
 forward's output unchanged by its log-sum-exp output, and the autograd
-functions launching the backward kernels.
+functions launching the backward kernels; and the mesh at world 1 (one
+NCCL rank): the transport, the kernels through ``local_map``, and the
+sharded steps of jamba, xlstm-125m and seamless bitwise their one-device
+steps.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one, save the check that ``ModelAPI.init(device="cuda")`` raises on a
@@ -28,6 +31,8 @@ the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1330,3 +1335,67 @@ def test_serve_launcher_reduced_on_the_card(cuda_device):
         capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "completed 3/3 requests, 12 tokens generated" in r.stdout
+
+
+def _family_sharded_rank(rank, arch, B=2, S=64, steps=4):
+    """One NCCL rank: ``arch`` at ``launch_config(arch, "reduced")`` (d_model
+    512, 8 heads of 64) on one device and on the 1×1 mesh — the prefill,
+    ``steps`` teacher-forced decode steps and one train step — and whether
+    each sharded result is bitwise the one-device one."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import encdec, get_model
+    from repro_torch.optim import adamw_init
+    mesh = make_test_mesh((1, 1), device_type="cuda")
+    cfg = st.launch_config(arch, "reduced", torch.device("cuda"))
+    api = get_model(cfg)
+    batch = SyntheticTokens(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                            frontend_tokens=S if cfg.enc_layers else 0,
+                            d_model=cfg.d_model).batch_at(0)
+    out = {}
+    for where in ("one", "mesh"):
+        m = mesh if where == "mesh" else None
+        params = api.train_params(api.init(0, device="cuda"))
+        if m is not None:
+            st.shard_params(params, cfg, m)
+        opt = adamw_init(params, state_dtype=st.state_dtype_of(cfg))
+        _, _, loss, mx = st.build_train_step(cfg, None, "cuda", mesh=m)(
+            params, opt, batch, 0)
+        served = api.serving_params(api.init(0, device="cuda"))
+        if m is not None:
+            st.shard_params(served, cfg, m)
+        pre = st.build_prefill_step(cfg, None, "cuda", mesh=m)(served, batch)
+        if cfg.enc_layers:
+            with (st.sharded_context(m) if m is not None
+                  else contextlib.nullcontext()):
+                cache = encdec.encdec_init_cache(served, cfg,
+                                                 batch["frontend"], S)
+        else:
+            cache = api.init_cache(B, S, device="cuda")
+        if m is not None:
+            cache = st.shard_cache(cache, m)
+        dec = st.build_decode_step(cfg, None, "cuda", mesh=m)
+        logits = []
+        for t in range(steps):
+            lg, cache = dec(served, torch.from_numpy(batch["tokens"][:, t]),
+                            torch.full((B,), t), cache)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        out[where] = (float(loss), float(mx["grad_norm"]), pre.cpu(),
+                      torch.stack(logits).cpu())
+    one, sh = out["one"], out["mesh"]
+    return dict(train=sh[:2] == one[:2], prefill=torch.equal(sh[2], one[2]),
+                decode=torch.equal(sh[3], one[3]), readings=(one[:2], sh[:2]))
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m",
+                                  "seamless-m4t-large-v2"])
+def test_family_sharded_steps_bitwise_on_the_card(cuda_device, arch):
+    """jamba, xlstm-125m and seamless on the 1×1 NCCL mesh: the sharded
+    train step's loss and grad_norm, prefill logits and decode logits are
+    bitwise the one-device step's."""
+    from repro_torch.comm import p2p
+    (res,) = p2p.spawn(_family_sharded_rank, 1, arch, backend="nccl",
+                       timeout=600)
+    assert res["train"] and res["prefill"] and res["decode"], res

@@ -2,10 +2,13 @@
 of ``tests/test_dryrun.py``: one step traced on fake tensors over a fake
 process group of the mesh's size. granite-3-2b ``train_4k`` and
 ``decode_32k`` on a 4×4 mesh and ``train_4k`` on 2×2×4 (the folded pod
-axis) come back ok with FLOPs and collective bytes, their argument bytes
-equal to the local shard bytes the specs give, and ``long_500k`` on a
-quadratic arch is skipped. Each cell is its own process (the fake group
-would outlive a test in this one); the three traced cells run at once.
+axis), and one cell of each recurrent or encoder-decoder family on 4×4
+(jamba-1.5-large-398b ``decode_32k``, xlstm-125m ``long_500k``,
+seamless-m4t-large-v2 ``decode_32k``, its cache a dict), come back ok
+with FLOPs and collective bytes, their argument bytes equal to the local
+shard bytes the specs give, and ``long_500k`` on a quadratic arch is
+skipped. Each cell is its own process (the fake group would outlive a
+test in this one); the traced cells run at once.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun.py
 """
@@ -24,10 +27,15 @@ from repro_torch.models import get_model
 from repro_torch.runtime import sharding as sh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CELLS = {"train_4x4": ("train_4k", "4x4", False),
-         "decode_4x4": ("decode_32k", "4x4", False),
-         "train_2x2x4": ("train_4k", "2x2x4", True),
-         "long_4x4": ("long_500k", "4x4", False)}
+CELLS = {"train_4x4": ("granite-3-2b", "train_4k", "4x4", False),
+         "decode_4x4": ("granite-3-2b", "decode_32k", "4x4", False),
+         "train_2x2x4": ("granite-3-2b", "train_4k", "2x2x4", True),
+         "long_4x4": ("granite-3-2b", "long_500k", "4x4", False),
+         "jamba_decode_4x4": ("jamba-1.5-large-398b", "decode_32k", "4x4",
+                              False),
+         "xlstm_long_4x4": ("xlstm-125m", "long_500k", "4x4", False),
+         "seamless_decode_4x4": ("seamless-m4t-large-v2", "decode_32k",
+                                 "4x4", False)}
 
 
 @pytest.fixture(scope="module")
@@ -35,11 +43,11 @@ def cells(tmp_path_factory):
     """Start every cell's dry run at once; their results by name."""
     d = tmp_path_factory.mktemp("dryrun")
     procs = {}
-    for key, (shape, mesh, mp) in CELLS.items():
+    for key, (arch, shape, mesh, mp) in CELLS.items():
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                    REPRO_DRYRUN_MESH=mesh)
         args = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                "granite-3-2b", "--shape", shape, "--out",
+                arch, "--shape", shape, "--out",
                 str(d / f"{key}.json")] + (["--multi-pod"] if mp else [])
         procs[key] = subprocess.Popen(args, env=env, cwd=ROOT, text=True,
                                       stdout=subprocess.PIPE,
@@ -58,10 +66,10 @@ def cells(tmp_path_factory):
     return out
 
 
-def _arg_bytes(shape_name, sizes, names):
+def _arg_bytes(arch, shape_name, sizes, names):
     """Local bytes of the step's arguments from the specs alone."""
     mesh = sh.MeshAxes(names, sizes)
-    cfg = tconfig.get_config("granite-3-2b")
+    cfg = tconfig.get_config(arch)
     shape = tconfig.SHAPES[shape_name]
     api = get_model(cfg)
     ins = steps.input_specs(cfg, shape)
@@ -85,16 +93,19 @@ def _arg_bytes(shape_name, sizes, names):
                            for k, t in ins["batch"].items())
     served = api.serving_params(p)
     total = sum(local(w, pspecs[k]) for k, w in served.named_parameters())
-    for entry in ins["cache"]:
+    cache = ins["cache"]
+    for entry in ([cache] if isinstance(cache, dict) else cache):
         total += sum(local(t, sh.cache_pspec(tuple(t.shape), mesh))
                      for t in entry.values())
     tspec = sh.batch_specs({"t": ins["token"]}, mesh)["t"]
     return total + 2 * local(ins["token"], tspec)
 
 
-@pytest.mark.parametrize("key", ["train_4x4", "decode_4x4", "train_2x2x4"])
+@pytest.mark.parametrize("key", ["train_4x4", "decode_4x4", "train_2x2x4",
+                                 "jamba_decode_4x4", "xlstm_long_4x4",
+                                 "seamless_decode_4x4"])
 def test_dryrun_cell(cells, key):
-    shape, mesh, mp = CELLS[key]
+    arch, shape, mesh, mp = CELLS[key]
     r = cells[key]
     sizes = tuple(int(d) for d in mesh.split("x"))
     names = ("pod", "data", "model")[-len(sizes):]
@@ -106,7 +117,7 @@ def test_dryrun_cell(cells, key):
         "all-gather", "reduce-scatter", "all-reduce", "all-to-all",
         "collective-permute"}
     assert r["memory"]["argument_size_in_bytes"] == \
-        _arg_bytes(shape, sizes, names)
+        _arg_bytes(arch, shape, sizes, names)
     assert r["fits_80gb"] == (r["memory"]["argument_size_in_bytes"]
                               < 80 * 2 ** 30)
 

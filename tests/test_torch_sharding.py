@@ -166,7 +166,9 @@ def test_act_policy_equals_jax(mesh):
 
 
 @pytest.mark.parametrize("mesh", ["2x4", "2x16x16"])
-@pytest.mark.parametrize("arch", ["granite-3-2b", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "dbrx-132b",
+                                  "jamba-1.5-large-398b", "xlstm-125m",
+                                  "seamless-m4t-large-v2"])
 def test_step_shardings_equal_the_jax_builders(mesh, arch):
     """``launch.steps.step_shardings`` against the in-shardings the JAX
     package's ``build_train_step`` and ``build_decode_step`` return:
@@ -186,6 +188,10 @@ def test_step_shardings_equal_the_jax_builders(mesh, arch):
             continue
         _, _, ins, _ = jsteps.build_decode_step(jcfg, shape, jm)
         assert got["token"] == got["pos"] == spec(ins[1])
+        if isinstance(ins[3], dict):                # the enc-dec cache
+            assert got["cache"] == {k: spec(v) for k, v in ins[3].items()}
+            continue
+        assert len(got["cache"]) == len(ins[3])
         for je, te in zip(ins[3], got["cache"]):
             assert te == {k: spec(v) for k, v in je.items()}
 
