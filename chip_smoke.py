@@ -366,15 +366,19 @@ def bf16_used(delta, ref, tol):
 # and spills for each template instance
 # ---------------------------------------------------------------------------
 
-SASS_OPS = ("DMMA", "HMMA", "LDGSTS", "LDSM")
+SASS_OPS = ("DMMA", "HMMA", "HGMMA", "UTMALDG", "LDGSTS", "LDSM")
 # the instruction each redesigned library must hold, and the instances
 # (by name prefix) that must hold it
 SASS_REQUIRED = {
     "block_gemm": [("block_gemm_kernel<double", "DMMA"),
                    ("block_gemm_kernel<__nv_bfloat16", "HMMA")],
     "flash_attention": [("flash_hmma_kernel<", "HMMA")],
-    "flash_attention_bwd": [("dkdv_kernel<", "HMMA"), ("dq_kernel<", "HMMA")],
+    "flash_attention_bwd": [("dkdv_wgmma<", "HGMMA"), ("dkdv_wgmma<", "UTMALDG"),
+                            ("dq_wgmma<", "HGMMA"), ("dq_wgmma<", "UTMALDG"),
+                            ("dkdv_kernel<", "HMMA"), ("dq_kernel<", "HMMA")],
 }
+# the instances (by name prefix) ptxas must build without a spilled byte
+SPILL_FREE = {"flash_attention_bwd": ("dkdv_wgmma<", "dq_wgmma<")}
 CTYPE = {"float64": "double", "bfloat16": "__nv_bfloat16",
          "float32": "float"}
 
@@ -402,7 +406,7 @@ def instance_name(mangled):
     m = re.search(r"\d+(block_gemm_kernel|flash_hmma_kernel|flash_kernel|"
                   r"trsm_kernel|rmsnorm_kernel|rmsnorm_two_pass|"
                   r"rmsnorm_bwd_kernel|flash_bwd_dkdv|flash_bwd_dq|"
-                  r"dkdv_kernel|dq_kernel)I", mangled)
+                  r"dkdv_kernel|dq_kernel|dkdv_wgmma|dq_wgmma)I", mangled)
     if not m:
         return mangled
     args, pos = [], m.end()
@@ -471,7 +475,9 @@ def ptxas_report(log):
 def compiled_checks(libs, logs):
     """The tensor-core check and the ptxas report of every instance: the
     block-GEMM library must hold DMMA in each f64 instance and HMMA in each
-    bf16 one, the flash library HMMA in each tensor-core instance."""
+    bf16 one, the flash library HMMA in each tensor-core instance, the
+    flash backward HGMMA and UTMALDG in each wgmma instance (built with no
+    spill) and HMMA in each mma.sync one."""
     sass = {n: sass_counts(libs[n]) for n in SASS_REQUIRED}
     for lib, reqs in SASS_REQUIRED.items():
         for prefix, op in reqs:
@@ -482,6 +488,14 @@ def compiled_checks(libs, logs):
                                      f"instances: {hits} (SASS of {lib}: "
                                      f"{sass[lib]})")
     ptxas = {n: ptxas_report(t) for n, t in logs.items()}
+    for lib, prefixes in SPILL_FREE.items():
+        built = {k: v for k, v in ptxas.get(lib, {}).items()
+                 if k.startswith(prefixes)}
+        bad = {k: v for k, v in built.items()
+               if v.get("spill_stores") or v.get("spill_loads")}
+        if not built or bad:
+            raise AssertionError(f"{lib}: spills in {prefixes} instances: "
+                                 f"{bad or 'no ptxas report'}")
     for lib in SASS_REQUIRED:
         for k, v in sass[lib].items():
             p = ptxas.get(lib, {}).get(k, {})
@@ -3726,8 +3740,8 @@ def backward_checks(dev):
         ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         dt_ = dout.transpose(1, 2).contiguous()
         pairs = S * (S + 1) // 2 if causal else S * S
-        p = fb.plan(B, S, H, hd, dt)
-        if name == "bfloat16" and p.variant != "hmma_cpasync":
+        p = fb.plan(B, S, H, hd, dt, causal=causal)
+        if name == "bfloat16" and p.variant != "wgmma_tma":
             raise AssertionError(f"flash_attention_bwd {what}: {p.variant}")
         elt = q.element_size()
         rows.append(_row(
@@ -3739,12 +3753,16 @@ def backward_checks(dev):
                                         retain_graph=True),
             8 * B * S * H * hd * elt + 4 * B * H * S,
             10 * B * H * hd * pairs, causal=causal, tol_used=used,
-            variant=p.variant, tile=f"{p.bq}x{p.bk}",
+            variant=p.variant,
+            tile=(f"dK/dV {p.dkdv_tile[0]} keys x {p.dkdv_tile[1]} q rows, "
+                  f"dQ {p.dq_tile[0]} q rows x {p.dq_tile[1]} keys, "
+                  f"{p.stages} stages, {p.warpgroups} warpgroups"
+                  if p.variant == "wgmma_tma" else f"{p.bq}x{p.bk}"),
             forward_lse_on_ms=on_ms, forward_lse_off_ms=off_ms,
             kernel_lib="flash_attention_bwd",
-            symbol=(f"flash_bwd_dkdv<{CTYPE[name]}, {hd}, {p.bk}>"
-                    if p.variant == "fma_f32" else f"dkdv_kernel<{hd}, "
-                    f"{p.bq}, {str(p.variant == 'hmma_cpasync').lower()}>")))
+            symbol={"fma_f32": f"flash_bwd_dkdv<{CTYPE[name]}, {hd}, {p.bk}>",
+                    "wgmma_tma": f"dkdv_wgmma<{hd}>",
+                    "hmma_guarded": f"dkdv_kernel<{hd}, {p.bq}>"}[p.variant]))
         log(f"  flash forward {what} {name}: lse on {on_ms:.4f} ms, off "
             f"{off_ms:.4f} ms, the output bitwise the same")
         del q, k, v, dout, out, lse, off, qt, kt, vt, ot, dt_
@@ -3853,7 +3871,8 @@ def _train_class(k):
         return _RMS_BWD_CLASS
     if "rmsnorm" in k:
         return _RMS_CLASS
-    if any(x in k for x in ("flash_bwd", "dkdv_kernel", "dq_kernel")):
+    if any(x in k for x in ("flash_bwd", "dkdv_kernel", "dq_kernel",
+                            "dkdv_wgmma", "dq_wgmma", "wgt::dot16")):
         return _FLASH_BWD_CLASS
     if "flash" in k:
         return _FLASH_CLASS

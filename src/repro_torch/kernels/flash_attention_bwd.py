@@ -12,7 +12,8 @@ kernel's arithmetic in one tile). A CUDA tensor launches the kernel or
 raises; nothing falls back. ``launches`` counts calls that launched the
 kernel (three kernels a call: D, dK/dV, dQ), and only those; ``plans``
 counts them by variant. :func:`plan` — pure Python — chooses the variant
-and the tiles; the C entry takes its choice as it is."""
+and the tiles, and :func:`tensor_map` the TMA maps of the ``wgmma_tma``
+route; the C entry takes both as they are."""
 from __future__ import annotations
 
 import collections
@@ -26,7 +27,8 @@ from . import _build
 from .ref import flash_attention_bwd_ref as flash_attention_bwd_plain
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "launches",
-           "plans", "SUPPORTED", "HEAD_DIMS", "VARIANTS", "BwdPlan", "plan"]
+           "plans", "SUPPORTED", "HEAD_DIMS", "VARIANTS", "BwdPlan", "plan",
+           "TensorMap", "tensor_map"]
 
 #: calls that launched the kernel since import (or a caller's reset)
 launches = 0
@@ -36,8 +38,16 @@ plans: collections.Counter = collections.Counter()
 SUPPORTED = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 #: the C entry's variant codes
-VARIANTS = {"fma_f32": 0, "hmma_cpasync": 1, "hmma_guarded": 2}
+VARIANTS = {"fma_f32": 0, "hmma_guarded": 2, "wgmma_tma": 3}
 BQ, THREADS = 64, 128
+#: wgmma_tma: rows of a tile (one warpgroup's 64-row M, one TMA box),
+#: consumer warpgroups a block, the ring's stages by head width, the keys
+#: of a dK/dV block by head width (at hd 128 both warpgroups take the
+#: same 64 keys, one accumulating dV and the other dK), and the bytes of a
+#: swizzle atom (the inner extent of a box)
+TILE, WARPGROUPS, SWIZZLE = 64, 2, 128
+STAGES = {64: 4, 128: 3}
+DKDV_KEYS = {64: 128, 128: 64}
 
 _fn = None
 
@@ -45,12 +55,16 @@ _fn = None
 @dataclass(frozen=True)
 class BwdPlan:
     """One call's kernel choice: the variant (``fma_f32`` on the FMA
-    units; ``hmma_cpasync`` / ``hmma_guarded`` on the tensor cores, tiles
-    staged by cp.async or by guarded element loads), ``bq`` and ``bk``
-    (fma: 64 q rows by ``bk`` keys a tile; hmma: ``bq`` q rows a dK/dV
-    step, ``bk`` keys a dQ step), 128 threads a block, the dK/dV grid
-    (B·H, key tiles) and the dQ grid (B·H, q tiles), and the dynamic
-    shared memory of each."""
+    units; ``wgmma_tma`` on the tensor cores by wgmma, tiles by TMA through
+    a ring, or ``hmma_guarded`` by mma.sync, tiles by guarded element
+    loads), ``bq`` and ``bk`` (fma: 64 q rows by ``bk`` keys a tile; hmma:
+    ``bq`` q rows a dK/dV step, ``bk`` keys a dQ step; wgmma: the 64 rows of
+    a ring stage), the threads of a block, the dK/dV grid (B·H, key tiles)
+    and the dQ grid (B·H, q tiles), the dynamic shared memory of each, the
+    ring's ``stages``, the consumer ``warpgroups`` of a block (0 off the
+    wgmma route), ``dkdv_tile`` (keys a block, q rows a step), ``dq_tile``
+    (q rows a block, keys a step), and whether the dQ blocks take their q
+    tiles last first (causal)."""
     variant: str
     bq: int
     bk: int
@@ -58,20 +72,35 @@ class BwdPlan:
     dq_grid: tuple
     dkdv_smem: int
     dq_smem: int
+    threads: int = THREADS
+    stages: int = 1
+    warpgroups: int = 0
+    dkdv_tile: tuple = ()
+    dq_tile: tuple = ()
+    heavy_first: bool = False
+
+    def dq_order(self) -> list:
+        """The q tile (of ``dq_tile[0]`` rows) each dQ block takes, in the
+        order the blocks are numbered (x fastest): under ``heavy_first``
+        every head's last tile, whose key loop is the longest, first."""
+        nbh, nq = self.dq_grid
+        return [(nq - 1 - y) if self.heavy_first else y
+                for y in range(nq) for _ in range(nbh)]
 
 
 def plan(B: int, S: int, H: int, hd: int, dtype: torch.dtype,
          strides: Sequence[Sequence[int]] | None = None,
-         addrs: Sequence[int] = (0,) * 8) -> BwdPlan:
+         addrs: Sequence[int] = (0,) * 8, causal: bool = True) -> BwdPlan:
     """f32 takes the FMA kernel at 64 q rows by 64 keys (hd 64) or 32
     keys (hd 128), so each thread's dK and dV accumulators are 32 f32
-    each at either width. bf16 takes the tensor-core kernel: 64 keys a
-    dK/dV block (4 warps of 16) against 64 (hd 64) or 32 (hd 128) q rows a
-    step, 64 q rows a dQ block against 64 or 32 keys a step, so the score
-    fragments stay within 64 registers beside the hd-wide accumulators;
-    its tiles are staged by cp.async only when every base address (``addrs``
-    of q, k, v, out, dout, dq, dk, dv) and (batch, seq, head) stride is
-    16-byte aligned."""
+    each at either width. bf16 whose every base address (``addrs`` of q,
+    k, v, out, dout, dq, dk, dv) and (batch, seq, head) stride is 16-byte
+    aligned takes ``wgmma_tma``: blocks of two consumer warpgroups and a
+    producer warpgroup, 128 keys a dK/dV block at hd 64 (64 at hd 128)
+    and 128 q rows a dQ block, 64-row tiles through a ring of 4 (hd 64) or
+    3 (hd 128) stages. Other bf16 takes ``hmma_guarded``: 64 keys a dK/dV
+    block (4 warps of 16) against 64 (hd 64) or 32 (hd 128) q rows a step,
+    64 q rows a dQ block against 64 or 32 keys a step."""
     if dtype not in SUPPORTED:
         raise TypeError(f"flash_attention_bwd takes "
                         f"{sorted(map(str, SUPPORTED))} on the card, got "
@@ -84,15 +113,60 @@ def plan(B: int, S: int, H: int, hd: int, dtype: torch.dtype,
         tiles = 4 * ((2 * BQ + 2 * t) * (hd + 1) + 2 * BQ)
         return BwdPlan("fma_f32", BQ, t, (B * H, -(-S // t)),
                        (B * H, -(-S // BQ)), tiles + 4 * 2 * BQ * (t + 1),
-                       tiles + 4 * BQ * (t + 1))
+                       tiles + 4 * BQ * (t + 1), dkdv_tile=(t, BQ),
+                       dq_tile=(BQ, t))
     if strides is None:
         strides = [(S * H * hd, H * hd, hd)] * 8
     aligned = (all(a % 16 == 0 for a in addrs)
                and all(int(x) * 2 % 16 == 0 for st in strides for x in st))
+    if aligned:
+        st, tb, keys = STAGES[hd], TILE * hd * 2, DKDV_KEYS[hd]
+        rows = WARPGROUPS * TILE
+        ring = 2 * st * tb + (1 + 2 * st) * 8 + 1024   # + barriers, alignment
+        return BwdPlan(
+            "wgmma_tma", TILE, TILE, (B * H, -(-S // keys)),
+            (B * H, -(-S // rows)),
+            ring + 2 * keys // TILE * tb + st * 2 * TILE * 4,
+            ring + 2 * WARPGROUPS * tb, threads=128 * (WARPGROUPS + 1),
+            stages=st, warpgroups=WARPGROUPS, dkdv_tile=(keys, TILE),
+            dq_tile=(rows, TILE), heavy_first=causal)
     ld = 2 * (hd + 8)
-    return BwdPlan("hmma_cpasync" if aligned else "hmma_guarded", t, t,
-                   (B * H, -(-S // 64)), (B * H, -(-S // 64)),
-                   ld * (2 * 64 + 2 * t) + 4 * 2 * t, ld * (2 * 64 + 2 * t))
+    return BwdPlan("hmma_guarded", t, t, (B * H, -(-S // 64)),
+                   (B * H, -(-S // 64)), ld * (2 * 64 + 2 * t) + 4 * 2 * t,
+                   ld * (2 * 64 + 2 * t), dkdv_tile=(64, t), dq_tile=(64, t))
+
+
+@dataclass(frozen=True)
+class TensorMap:
+    """The parameters of one TMA map (``cuTensorMapEncodeTiled``) over a
+    (B, S, H, hd) bf16 operand: ``dims`` (hd, H, S, B), innermost first;
+    ``strides`` in bytes of a head, a row and a batch; ``box`` the extent
+    of one load, 64 columns (one 128-byte swizzle atom) by one head by
+    :data:`TILE` rows by one batch."""
+    dims: tuple
+    strides: tuple
+    box: tuple
+
+    def args(self) -> list:
+        return [*self.dims, *self.strides, *self.box]
+
+
+def tensor_map(shape: Sequence[int], stride: Sequence[int],
+               elt: int = 2) -> TensorMap:
+    """The map of an operand of ``shape`` (B, S, H, hd) with element
+    ``stride`` (the caller's, hd contiguous). A dimension of extent 1 is
+    never stepped, so it takes the stride of a packed layout (the caller's
+    may be anything there)."""
+    B, S, H, hd = shape
+    sb, ss, sh = (int(x) * elt for x in stride[:3])
+    if H == 1:
+        sh = hd * elt
+    if S == 1:
+        ss = H * hd * elt
+    if B == 1:
+        sb = S * H * hd * elt
+    return TensorMap((hd, H, S, B), (sh, ss, sb),
+                     (SWIZZLE // elt, 1, TILE, 1))
 
 
 def _kernel():
@@ -101,8 +175,8 @@ def _kernel():
         f = _build.load("flash_attention_bwd").flash_attention_bwd_launch
         f.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 10
                       + [ctypes.c_int] * 4
-                      + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                         ctypes.c_int, ctypes.c_void_p])
+                      + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         f.restype = ctypes.c_int
         _fn = f
     return _fn
@@ -135,7 +209,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True):
              for _ in range(3)]
     outs = ts + tuple(grads)
     p = plan(B, S, H, hd, q.dtype, [t.stride()[:3] for t in outs],
-             [t.data_ptr() for t in outs])
+             [t.data_ptr() for t in outs], causal)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous f32 tensor")
     if any(t.stride(-1) != 1 for t in ts):
@@ -143,20 +217,24 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True):
     if max(p.dkdv_grid[1], p.dq_grid[1]) > 65535:
         raise ValueError(f"S = {S} exceeds the grid's y limit")
     if B and S and H:
-        D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        # wgmma_tma: lse·log2 e and D, each row padded to a whole tile
+        n = B * H * (2 * -(-S // TILE) * TILE if p.variant == "wgmma_tma"
+                     else S)
+        D = torch.empty(n, dtype=torch.float32, device=q.device)
         st = [s for t in outs for s in t.stride()[:3]]
         arr = (ctypes.c_longlong * 24)(*st)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        with torch.cuda.device(q.device):
-            err = _kernel()(SUPPORTED[q.dtype], VARIANTS[p.variant], p.bq,
-                            p.bk,
-                            *(t.data_ptr() for t in ts), lse.data_ptr(),
-                            D.data_ptr(), *(g.data_ptr() for g in grads),
-                            B, S, H, hd, arr, hd ** -0.5, int(causal),
-                            stream)
+        maps = (ctypes.c_longlong * 44)(*(
+            [x for t in (q, k, v, dout)
+             for x in tensor_map(t.shape, t.stride()).args()]
+            if p.variant == "wgmma_tma" else [0] * 44))
+        err = _build.launch(
+            _kernel(), q.get_device(), SUPPORTED[q.dtype],
+            VARIANTS[p.variant], p.bq, p.bk, *(t.data_ptr() for t in ts),
+            lse.data_ptr(), D.data_ptr(), *(g.data_ptr() for g in grads),
+            B, S, H, hd, arr, maps, hd ** -0.5, int(causal))
         if err != 0:
             raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
-                               f"CUDA error {err} (B={B}, S={S}, H={H}, "
+                               f"error {err} (B={B}, S={S}, H={H}, "
                                f"hd={hd}, {q.dtype}, {p})")
         launches += 1
         plans[p.variant] += 1

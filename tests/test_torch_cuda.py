@@ -1090,8 +1090,8 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, B, S, H, hd, causal,
                                         dtype):
     """The backward kernel against its plain version on the same forward
     output and log-sum-exp (S = 200 and 333 leave ragged tiles); q, k, v
-    strided views of one packed tensor; one launch a call; bitwise
-    repeatable (no atomics)."""
+    strided views of one packed tensor; one launch a call, bf16 on the
+    wgmma_tma route; bitwise repeatable (no atomics)."""
     from repro_torch.kernels import flash_attention_bwd as fb
     g = torch.Generator(device=cuda_device).manual_seed(S + hd)
     qkv = torch.randn(B, S, 3, H, hd, device=cuda_device,
@@ -1103,10 +1103,12 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, B, S, H, hd, causal,
     _, plse = fa.flash_attention_plain(q, k, v, causal, lse=True)
     assert (lse - plse).abs().max().item() <= 1e-4 * max(
         1.0, plse.abs().max().item())
-    before = fb.launches
+    before, variants = fb.launches, dict(fb.plans)
     got = fb.flash_attention_bwd(q, k, v, out, dout, lse, causal)
     torch.cuda.synchronize()
     assert fb.launches == before + 1
+    want = "wgmma_tma" if dtype == torch.bfloat16 else "fma_f32"
+    assert fb.plans[want] == variants.get(want, 0) + 1
     ref = fb.flash_attention_bwd_plain(q, k, v, out, dout, lse, causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         _bwd_close(a, b, dtype, f"{name} {B}x{S}x{H}x{hd} {causal}")
@@ -1209,27 +1211,55 @@ def test_autograd_functions_launch_the_backward_kernels(cuda_device, dtype):
 
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_bwd_bf16_guarded_equals_cpasync(cuda_device, hd, causal):
-    """bf16 backward on the tensor cores: aligned operands take the
-    cp.async staging, misaligned copies the guarded element loads, with
-    the same bits; S = 200 leaves ragged key and q tiles."""
+def test_flash_bwd_bf16_tma_and_guarded_match_plain(cuda_device, hd,
+                                                    causal):
+    """bf16 backward on the tensor cores: aligned operands take the wgmma
+    route fed by TMA, misaligned copies the guarded mma.sync route; the two
+    sum in different orders, so each is held to the plain version (the
+    same tolerance) and to its own bits on a second call; S = 200 leaves
+    ragged key and q tiles."""
     from repro_torch.kernels import flash_attention_bwd as fb
     B, S, H = 2, 200, 3
     g = torch.Generator(device=cuda_device).manual_seed(hd + causal)
     q, k, v, dout = (torch.randn(B, S, H, hd, device=cuda_device, generator=g
                                  ).to(torch.bfloat16) for _ in range(4))
     out, lse = fa.flash_attention(q, k, v, causal, lse=True)
-    before = dict(fb.plans)
-    got = fb.flash_attention_bwd(q, k, v, out, dout, lse, causal)
-    mis = [_misaligned(t) for t in (q, k, v, out, dout)]
-    again = fb.flash_attention_bwd(*mis, lse, causal)
-    torch.cuda.synchronize()
-    assert fb.plans["hmma_cpasync"] == before.get("hmma_cpasync", 0) + 1
-    assert fb.plans["hmma_guarded"] == before.get("hmma_guarded", 0) + 1
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
     ref = fb.flash_attention_bwd_plain(q, k, v, out, dout, lse, causal)
+    mis = [_misaligned(t) for t in (q, k, v, out, dout)]
+    for variant, args in (("wgmma_tma", (q, k, v, out, dout)),
+                          ("hmma_guarded", mis)):
+        before = dict(fb.plans)
+        got = fb.flash_attention_bwd(*args, lse, causal)
+        torch.cuda.synchronize()
+        assert fb.plans[variant] == before.get(variant, 0) + 1
+        assert sum(fb.plans.values()) == sum(before.values()) + 1
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            _bwd_close(a, b, torch.bfloat16,
+                       f"{variant} {name} hd={hd} {causal}")
+        again = fb.flash_attention_bwd(*args, lse, causal)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bwd_local_shard_takes_tma(cuda_device, hd):
+    """A DTensor-sized local shard (heads 2..5 of 8: a head stride of hd,
+    a row stride of 8·hd, the base 2·hd elements in) takes the TMA route
+    as it is, no copy, and matches the plain version."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+    B, S = 2, 333
+    g = torch.Generator(device=cuda_device).manual_seed(hd)
+    q, k, v, dout = (torch.randn(B, S, 8, hd, device=cuda_device, generator=g
+                                 ).to(torch.bfloat16)[:, :, 2:6]
+                     for _ in range(4))
+    assert q.stride() == (S * 8 * hd, 8 * hd, hd, 1)
+    out, lse = fa.flash_attention(q, k, v, True, lse=True)
+    before = dict(fb.plans)
+    got = fb.flash_attention_bwd(q, k, v, out, dout, lse, True)
+    torch.cuda.synchronize()
+    assert fb.plans["wgmma_tma"] == before.get("wgmma_tma", 0) + 1
+    ref = fb.flash_attention_bwd_plain(q, k, v, out, dout, lse, True)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-        _bwd_close(a, b, torch.bfloat16, f"{name} hd={hd} {causal}")
+        _bwd_close(a, b, torch.bfloat16, f"shard {name} hd={hd}")
 
 
 # -- the mesh (world 1 on the one card) ----------------------------------------

@@ -145,15 +145,25 @@ def test_backward_wrappers_check_their_inputs():
 
 @pytest.mark.parametrize("hd,t", [(64, 64), (128, 32)])
 def test_flash_bwd_plan(hd, t):
-    """bf16 on the tensor cores (cp.async only when every operand is
-    16-byte aligned), f32 on the FMA units; the tiles by head width; the
-    shared memory within the card's 227 KB."""
+    """bf16 on the tensor cores (wgmma fed by TMA only when every operand
+    is 16-byte aligned, else mma.sync on guarded loads), f32 on the FMA
+    units; the tiles by head width; the shared memory within the card's
+    227 KB."""
     p = fb.plan(2, 4096, 32, hd, torch.bfloat16)
-    assert (p.variant, p.bq, p.bk) == ("hmma_cpasync", t, t)
-    assert p.dkdv_grid == p.dq_grid == (64, 64)
-    assert p.dq_smem < p.dkdv_smem <= 227 * 1024
-    assert fb.plan(2, 4096, 32, hd, torch.bfloat16,
-                   addrs=(0, 2) + (0,) * 6).variant == "hmma_guarded"
+    keys = 128 if hd == 64 else 64
+    assert (p.variant, p.bq, p.bk) == ("wgmma_tma", 64, 64)
+    assert (p.warpgroups, p.threads, p.stages) == (2, 384, 4 if hd == 64
+                                                   else 3)
+    assert p.dkdv_tile == (keys, 64) and p.dq_tile == (128, 64)
+    assert p.dkdv_grid == (64, 4096 // keys) and p.dq_grid == (64, 32)
+    assert max(p.dkdv_smem, p.dq_smem) <= 227 * 1024
+    tile = 64 * hd * 2
+    assert p.dq_smem >= 2 * 2 * tile + 2 * p.stages * tile
+    assert p.dkdv_smem >= 2 * keys // 64 * tile + 2 * p.stages * tile
+    g = fb.plan(2, 4096, 32, hd, torch.bfloat16, addrs=(0, 2) + (0,) * 6)
+    assert (g.variant, g.bq, g.bk) == ("hmma_guarded", t, t)
+    assert g.dkdv_grid == g.dq_grid == (64, 64)
+    assert g.dq_smem < g.dkdv_smem <= 227 * 1024
     odd = [(4096 * 32 * hd, 32 * hd + 1, hd)] * 8
     assert fb.plan(2, 4096, 32, hd, torch.bfloat16, odd
                    ).variant == "hmma_guarded"
@@ -165,6 +175,63 @@ def test_flash_bwd_plan(hd, t):
         fb.plan(1, 64, 1, 32, torch.bfloat16)
     with pytest.raises(TypeError):
         fb.plan(1, 64, 1, 64, torch.float64)
+
+
+@pytest.mark.parametrize("B,S,H", [(2, 4096, 32), (1, 333, 3), (3, 128, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_dq_order(B, S, H, causal):
+    """Causal dQ blocks take every q tile once a (b, h), the last (whose
+    key loop is the longest) first; without the mask, in order."""
+    p = fb.plan(B, S, H, 64, torch.bfloat16, causal=causal)
+    order = p.dq_order()
+    nbh, nq = p.dq_grid
+    assert (nbh, nq) == (B * H, -(-S // 128)) and p.heavy_first == causal
+    assert len(order) == nbh * nq
+    for bh in range(nbh):
+        assert sorted(order[bh::nbh]) == list(range(nq))
+    first = order[:nbh]
+    assert first == [nq - 1 if causal else 0] * nbh
+    assert order[-1] == (0 if causal else nq - 1)
+    assert not fb.plan(B, S, H, 64, torch.bfloat16, addrs=(2,) + (0,) * 7,
+                       causal=causal).heavy_first
+
+
+def _check_map(m, shape, elt=2):
+    B, S, H, hd = shape
+    assert m.dims == (hd, H, S, B)
+    assert all(x % 16 == 0 and 0 < x < 2 ** 40 for x in m.strides)
+    assert all(1 <= x <= 256 for x in m.box)
+    assert m.box[0] * elt <= 128 and m.box[0] * elt % 16 == 0
+    assert m.box[1] == m.box[3] == 1 and m.box[2] == 64
+    assert len(m.args()) == 11
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bwd_tensor_maps(hd):
+    """The TMA maps of the wgmma route: rank 4 (hd, H, S, B) with the
+    caller's strides in bytes, on a packed-qkv view (row stride 3·H·hd)
+    and on a local shard of a head-sharded tensor (heads 2..5 of 8: a row
+    stride of 8·hd, the base 2·hd in); 64-column boxes (one 128-byte
+    swizzle atom) of 64 rows."""
+    B, S, H = 2, 333, 3
+    qkv = torch.zeros(B, S, 3, H, hd, dtype=torch.bfloat16)
+    for i, t in enumerate(qkv.unbind(2)):
+        m = fb.tensor_map(tuple(t.shape), t.stride())
+        _check_map(m, t.shape)
+        assert m.strides == (hd * 2, 3 * H * hd * 2, S * 3 * H * hd * 2)
+        assert (t.data_ptr() - qkv.data_ptr()) % 16 == 0
+    full = torch.zeros(B, S, 8, hd, dtype=torch.bfloat16)
+    shard = full[:, :, 2:6]
+    m = fb.tensor_map(tuple(shard.shape), shard.stride())
+    _check_map(m, shard.shape)
+    assert m.strides == (hd * 2, 8 * hd * 2, S * 8 * hd * 2)
+    strides = [shard.stride()[:3]] * 8
+    addrs = [shard.data_ptr() - full.data_ptr()] * 8
+    assert fb.plan(B, S, 4, hd, torch.bfloat16, strides, addrs
+                   ).variant == "wgmma_tma"
+    # an extent of 1 takes a packed stride whatever the caller's
+    one = fb.tensor_map((1, 1, 1, hd), (7, 5, 3, 1))
+    assert one.strides == (hd * 2, hd * 2, hd * 2)
 
 
 @pytest.mark.parametrize("rows,d,dtype,g,ppt", [
