@@ -40,7 +40,8 @@ on the card:
    equal and, on FEM, a bucketed batch of 3 bitwise equal to its single
    solves for every executor;
 3c. replays the FEM setting's overlapped solve round by round
-   (``engine.profile_rounds``, each round fenced): the round count and
+   (``engine.profile_rounds``: the captured graph's replays profiled,
+   each round's device time from its phase map): the round count and
    wire bytes against the plan, the replay's A⁻¹ bitwise against the
    solve, the slowest rounds beside the α-β model, skew and fitted α/β;
 3d. solves through ``engine.solve`` on each setting and executor: the
@@ -1616,14 +1617,14 @@ def unrolled_path(dev, setting, state, b, grid=(4, 2)):
 
 def profile_path(dev, setting, state, reps=3):
     """Phase 3c: ``engine.profile_rounds`` of phase 3's overlapped session
-    (each round a segment fenced with ``torch.cuda.synchronize()``, the
-    minimum of ``reps``). Fails unless it covers ``len(overlap_plan.
-    rounds)`` rounds, its wire bytes equal ``executed_wire_bytes`` and
-    its A⁻¹ equals the solve bitwise. Prints the five slowest rounds
-    beside the α-β model's time for them (the simulator's default
-    network, a Cray XC30 — a model, not this card), the sum of the
-    segments against the fused solve, the inbound skew and the fitted
-    α/β."""
+    (``reps`` replays of its captured graph under the profiler, each
+    round's device time from the graph's phase map). Fails unless it
+    covers ``len(overlap_plan.rounds)`` rounds, its wire bytes equal
+    ``executed_wire_bytes`` and its A⁻¹ equals the solve bitwise. Prints
+    the five slowest rounds beside the α-β model's time for them (the
+    simulator's default network, a Cray XC30 — a model, not this card),
+    the sum of the rounds against the fused solve, the inbound skew and
+    the fitted α/β."""
     import torch
     from repro_torch.core.simulator import executed_wire_bytes
 
@@ -1656,12 +1657,12 @@ def profile_path(dev, setting, state, reps=3):
         log(f"  round {s.rounds[0]}: {s.wall_us:.1f} us measured, "
             f"{s.sim_us:.1f} us α-β model; {s.compute_ops} compute ops, "
             f"{s.msgs} lanes, {s.wire_bytes:.0f} wire B")
-    log(f"  segments: init {prof.init_us:.1f} us + {len(prof.samples)} "
+    log(f"  device time: init {prof.init_us:.1f} us + {len(prof.samples)} "
         f"rounds {sum(s.wall_us for s in prof.samples) / 1e3:.2f} ms "
         f"(with compute {sum(s.wall_us for s in comp) / 1e3:.2f} ms over "
         f"{len(comp)}, pure comm {sum(s.wall_us for s in pure) / 1e3:.2f} "
         f"ms over {len(pure)}) + final {prof.final_us:.1f} us = "
-        f"{seg_sum_ms:.2f} ms fenced, against the fused solve "
+        f"{seg_sum_ms:.2f} ms of device time, against the fused solve "
         f"{state['solve_ms']:.2f} ms; α-β model total "
         f"{prof.sim_us / 1e3:.3f} ms")
     log(f"  inbound skew max/mean {sk['skew_ratio']:.3f} (PlanLint warns "

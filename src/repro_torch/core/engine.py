@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import itertools
 import threading
 import time
 from collections import OrderedDict
@@ -57,8 +58,8 @@ from .plan import PlanOptions, peak_arena_blocks, ppermute_round_count
 from .pselinv_dist import (ExecTables, PSelInvProgram, StreamSweepTables,
                            SweepTables, analyze_structure, build_program,
                            make_sweep, make_sweep_overlapped,
-                           make_sweep_stream, pad_nb, prepare_values,
-                           moved_blocks, prepare_values_many,
+                           make_sweep_stream, pad_nb, prepare_step,
+                           prepare_values, moved_blocks, prepare_values_many,
                            upload_exec_tables, upload_stream_tables,
                            upload_tables, validate_uniform_widths)
 from .schedule import BYTES_PER_ELT, Grid2D
@@ -72,6 +73,10 @@ __all__ = ["Grid", "PlanOptions", "PSelInvEngine", "SolveValues",
 
 #: the session API's name for the 2-D process grid
 Grid = Grid2D
+
+#: the ``call`` id of each ``engine.solve`` span, which its child spans
+#: share (process-wide, so two sessions' calls never share one)
+_CALL_IDS = itertools.count(1)
 
 
 class SolveValues(NamedTuple):
@@ -337,13 +342,15 @@ class PSelInvEngine:
             self.grid.size, self.nb // self.grid.pr,
             self.nb // self.grid.pc, self.b, self.b)
 
-    def _build_runner(self, batched: bool, B: int, dtype: torch.dtype):
+    def _build_runner(self, batched: bool, B: int, dtype: torch.dtype,
+                      sweep=None):
         """A fresh runner for one shape class. On the card: the sweep
-        captured as a CUDA graph into the session's one graph memory pool
-        (every graph of the session replays through one gate, so their
-        shared temporaries never meet). On the CPU: the eager sweep, a
-        short batch padded with zero lanes."""
-        sweep = self.sweep(batched)
+        (the session's, unless ``sweep`` is given) captured as a CUDA
+        graph into the session's one graph memory pool (every graph of
+        the session replays through one gate, so their shared temporaries
+        never meet). On the CPU: the eager sweep, a short batch padded
+        with zero lanes."""
+        sweep = sweep or self.sweep(batched)
         if self.device.type == "cuda":
             with self._jit_lock:
                 if self._pool is None:
@@ -403,6 +410,24 @@ class PSelInvEngine:
         return self._build_runner(batched, int(batch_size) if batched
                                   else 1, dtype)
 
+    def profile_runner(self, dtype: torch.dtype) -> GraphRunner:
+        """The captured graph that ``profile_rounds`` replays on the card:
+        the single-matrix class's own for an overlapped session; for a
+        stream session the overlapped sweep over :meth:`overlap_tables`,
+        captured once and kept (uncounted: it is no class of the
+        session's solves)."""
+        if isinstance(self.tables, SweepTables):
+            return self._runner(False, 1, dtype)
+        key = ("profile", dtype)
+        with self._jit_lock:
+            run = self._fns.get(key)
+            if run is None:
+                run = self._build_runner(
+                    False, 1, dtype, make_sweep_overlapped(
+                        self.program, self.overlap_tables()))
+                self._fns[key] = run
+        return run
+
     def overlap_tables(self) -> SweepTables:
         """The overlapped schedule's device tables, which the profiling
         replay runs: the session's own for an overlapped session,
@@ -428,7 +453,8 @@ class PSelInvEngine:
         with TRACER.span("engine.prepare_values"):
             Lh, Dinv = prepare_values(A, self.bs, self.nb, self.b,
                                       self.grid.pr, self.grid.pc)
-            out = values_from_numpy(Lh, Dinv, self.device, dtype)
+            with prepare_step("upload"):
+                out = values_from_numpy(Lh, Dinv, self.device, dtype)
         self._last_prepare_us = (time.perf_counter() - t0) * 1e6
         return out
 
@@ -443,7 +469,8 @@ class PSelInvEngine:
             Lh, Dinv = prepare_values_many(mats, self.bs, self.nb,
                                            self.b, self.grid.pr,
                                            self.grid.pc)
-            out = values_from_numpy(Lh, Dinv, self.device, dtype)
+            with prepare_step("upload"):
+                out = values_from_numpy(Lh, Dinv, self.device, dtype)
         self._last_prepare_us = (time.perf_counter() - t0) * 1e6
         return out
 
@@ -484,7 +511,7 @@ class PSelInvEngine:
         B = Lh.shape[0] if batched else 1
         self.solve_calls += 1
         t0 = time.perf_counter()
-        with TRACER.span("engine.solve", B=B):
+        with TRACER.span("engine.solve", B=B, call=next(_CALL_IDS)):
             out = self._runner(batched, bucket_size(B) if batched and bucket
                                else B, Lh.dtype)(Lh, Dinv)
         # dispatch wall, not device wall: the caller synchronizes

@@ -22,6 +22,13 @@ layers of records:
   ``reduce_scatter`` report themselves as collectives — stray ones, on a
   hot path whose design is point-to-point rounds. With no recorder
   active a hook costs one ``None`` test a round.
+* **phase marks** — the overlapped executor calls :func:`mark` where
+  each phase of the sweep starts (``arena.init``, a compute op, a lane
+  move, ``arena.finish``), with its round. A record whose ``marker`` is
+  set passes each mark on: ``capture.capture`` reads the capture's node
+  frontier there, which maps the graph's nodes to phases and rounds
+  (:mod:`repro_torch.obs.graphmap`). Without a marker a mark costs the
+  same ``None`` test.
 * **the op layer** — :func:`ops_layer`, a ``TorchDispatchMode`` active
   for one eager sweep, sees every ATen op the sweep dispatches and notes
   an f64 value narrowed to a smaller float (``_to_copy``, ``copy_``
@@ -42,12 +49,13 @@ import math
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
 __all__ = ["DTYPE_BYTES", "ExecutedOp", "HostNote", "Record", "record",
-           "active", "ops_layer", "staging", "from_send_log",
+           "active", "mark", "ops_layer", "staging", "from_send_log",
            "dtype_name"]
 
 #: bytes of an element, by the HLO dtype names the JAX records use
@@ -106,10 +114,12 @@ class HostNote:
 class Record:
     """What one recorded sweep executed: its communication ops, in
     order, and — when the op layer ran — its notes and the number of ops
-    it dispatched."""
+    it dispatched. ``marker``, when set, receives each phase mark
+    ``(phase, round)`` of the sweep (:func:`mark`)."""
     ops: List[ExecutedOp] = field(default_factory=list)
     notes: List[HostNote] = field(default_factory=list)
     dispatched: Optional[int] = None
+    marker: Optional[Callable[[str, int], None]] = None
 
     def permute(self, where: str, executor: str,
                 pairs: Iterable[Tuple[int, int]], dims: Sequence[int],
@@ -135,6 +145,14 @@ _tls = threading.local()
 def active() -> Optional[Record]:
     """This thread's active record, or None."""
     return getattr(_tls, "rec", None)
+
+
+def mark(phase: str, t: int) -> None:
+    """The sweep's next device work belongs to ``phase`` of round ``t``:
+    passed to the active record's ``marker``; nothing without one."""
+    rec = getattr(_tls, "rec", None)
+    if rec is not None and rec.marker is not None:
+        rec.marker(phase, t)
 
 
 @contextmanager

@@ -74,7 +74,9 @@ A⁻¹(K,J) = A⁻¹(J,K)ᵀ — both identities hold blockwise for unpivoted LU
 """
 from __future__ import annotations
 
+import time
 import warnings
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -83,6 +85,7 @@ import torch
 
 from ..comm.p2p import ppermute
 from ..kernels.ops import pselinv_round_gemm
+from ..obs.registry import REGISTRY
 from ..obs.trace import TRACER
 from . import exec_ir
 from .plan import (CommPlan, ExecPlan, OverlappedExec, PlanOptions,
@@ -105,7 +108,7 @@ __all__ = ["PSelInvProgram", "build_program", "SweepTables",
            "build_program_unrolled", "UnrolledTables", "UnrolledIter",
            "upload_unrolled_tables", "make_sweep_unrolled",
            "make_sweep_unrolled_ranked", "unrolled_moved",
-           "check_grid_devices",
+           "check_grid_devices", "prepare_step", "COMPUTE_PHASES",
            "prepare_inputs", "run_distributed",
            "validate_uniform_widths", "pad_nb", "analyze_structure",
            "check_values_pattern", "prepare_values", "prepare_values_many",
@@ -1010,29 +1013,48 @@ def _permute_lanes(payload, ln: LaneTables):
     return moved
 
 
+#: the phase of each compute kind, as :func:`exec_ir.mark` names it
+COMPUTE_PHASES = {"gemm": "gemm", "write": "update.cols",
+                  "scomp": "update.diag_sum", "diagw": "update.diag_write"}
+
+
+def _computes(tabs: SweepTables, t: int, arena, flat, Dinv, nbr, nbc, b):
+    """The compute ops pinned at boundary ``t``, each marked as its
+    phase."""
+    for kind, li in tabs.compute_at[t]:
+        exec_ir.mark(COMPUTE_PHASES[kind], t)
+        _compute(kind, tabs.levels[li], tabs.N, arena, flat, Dinv, nbr,
+                 nbc, b)
+
+
 def _round(tabs: SweepTables, t: int, arena, flat, lh_flat, Dinv,
            nbr, nbc, b, permute=None):
     """One executed round: the boundary's pinned compute ops, the
     owner-local lane moves, then round ``t``'s coalesced multi-lane
     permute with per-lane gather/scatter/accumulate/transpose tables —
     over the rank axis (:func:`_permute_lanes`), or (``permute``) between
-    rank processes."""
-    for kind, li in tabs.compute_at[t]:
-        _compute(kind, tabs.levels[li], tabs.N, arena, flat, Dinv, nbr,
-                 nbc, b)
-    _local_lanes(flat, lh_flat, tabs.local[t])
+    rank processes. Each phase is marked (:func:`exec_ir.mark`) where it
+    starts."""
+    _computes(tabs, t, arena, flat, Dinv, nbr, nbc, b)
+    if tabs.local[t] is not None:
+        exec_ir.mark("lanes.local", t)
+        _local_lanes(flat, lh_flat, tabs.local[t])
     ln = tabs.comm[t]
     if ln is not None:
         B, P = arena.shape[:2]
+        exec_ir.mark("lanes.gather", t)
         payload = _gather_lanes(flat, lh_flat, ln).view(
             B, P, ln.width, b, b)
+        exec_ir.mark("lanes.permute", t)
         moved = (permute or _permute_lanes)(payload, ln)
+        exec_ir.mark("lanes.land", t)
         _land(flat, moved.view(B, P * ln.width, b, b), ln)
 
 
 def _init_arena(tabs, Dinv, b: int):
     """A fresh (B, P, arena, b, b) arena with the structless-supernode
-    diagonal seeds."""
+    diagonal seeds (phase ``arena.init``, round -1)."""
+    exec_ir.mark("arena.init", -1)
     B, P = Dinv.shape[:2]
     arena = torch.zeros((B, P, tabs.arena_blocks, b, b), dtype=Dinv.dtype,
                         device=Dinv.device)
@@ -1041,12 +1063,13 @@ def _init_arena(tabs, Dinv, b: int):
 
 
 def _finish(tabs: SweepTables, arena, Dinv, nbr, nbc, b):
-    """The trailing boundary's compute, and A⁻¹ out of the arena."""
+    """The trailing boundary's compute (round ``len(tabs.comm)``), and
+    A⁻¹ out of the arena (phase ``arena.finish``, the same round)."""
     B, P = arena.shape[:2]
     flat = arena.view(B, P * tabs.arena_blocks, b, b)
-    for kind, li in tabs.compute_at[len(tabs.comm)]:
-        _compute(kind, tabs.levels[li], tabs.N, arena, flat, Dinv, nbr,
-                 nbc, b)
+    t = len(tabs.comm)
+    _computes(tabs, t, arena, flat, Dinv, nbr, nbc, b)
+    exec_ir.mark("arena.finish", t)
     return arena[:, :, :tabs.N].reshape(B, P, nbr, nbc, b, b).clone(
         memory_format=torch.contiguous_format)
 
@@ -2069,11 +2092,36 @@ def _shard_blocks(G: np.ndarray, nb: int, b: int, pr: int,
     return G.reshape(lead + (pr * pc, nbr, nbc, b, b))
 
 
+_PREPARE_S = REGISTRY.counter(
+    "selinv_prepare_seconds_total",
+    "host seconds of the value prepare, by step (factor, layout, upload)",
+    ("step",))
+_PREPARE_CALLS = REGISTRY.counter(
+    "selinv_prepare_calls_total",
+    "value prepares (prepare_values and prepare_values_many calls)")
+
+
+@contextmanager
+def prepare_step(step: str):
+    """One step of a value prepare — ``factor`` (the pattern check, the
+    supernodal LU, L̂ and D⁻¹), ``layout`` (the dense block fill and the
+    shard layout) or ``upload`` (the copy to the device): the span
+    ``prepare.<step>`` and its host seconds added to
+    ``selinv_prepare_seconds_total{step}``, always on."""
+    t0 = time.perf_counter()
+    try:
+        with TRACER.span(f"prepare.{step}"):
+            yield
+    finally:
+        _PREPARE_S.labels(step).inc(time.perf_counter() - t0)
+
+
 def prepare_values(A, bs: BlockStructure, nb: int, b: int, pr: int,
                    pc: int) -> Tuple[np.ndarray, np.ndarray]:
     """The numeric half of :func:`prepare_inputs`: factorize this
     matrix's *values* on the host against an already-analyzed structure,
-    normalize, and lay out the dense-blocked shards.
+    normalize, and lay out the dense-blocked shards (the steps
+    ``factor`` and ``layout`` of :func:`prepare_step`).
 
     Returns (Lh, Dinv) with shape (pr*pc, nbr, nbc, b, b) for
     ``in_specs=P("xy")``. The caller guarantees ``A`` has the sparsity
@@ -2081,26 +2129,30 @@ def prepare_values(A, bs: BlockStructure, nb: int, b: int, pr: int,
     solve-many hot path, so no symbolic work happens here."""
     import scipy.linalg as sla
 
-    A = check_values_pattern(A, bs, b)
+    _PREPARE_CALLS.inc()
     nb0 = bs.nsuper
+    with prepare_step("factor"):
+        A = check_values_pattern(A, bs, b)
+        lu = factorize(A, bs=bs, backend="numpy")
+        Lhat, _ = normalize_factors(lu)
+        dinv = []
+        for K in range(nb0):
+            linv = sla.solve_triangular(np.asarray(lu.Ldiag[K]), np.eye(b),
+                                        lower=True, unit_diagonal=True)
+            dinv.append(sla.solve_triangular(np.asarray(lu.Udiag[K]), linv,
+                                             lower=False))
 
-    lu = factorize(A, bs=bs, backend="numpy")
-    Lhat, _ = normalize_factors(lu)
-
-    Lh_g = np.zeros((nb, nb, b, b))
-    Dinv_g = np.zeros((nb, nb, b, b))
-    for (I, K), blk in Lhat.items():
-        Lh_g[I, K] = np.asarray(blk)
-    for K in range(nb0):
-        linv = sla.solve_triangular(np.asarray(lu.Ldiag[K]), np.eye(b),
-                                    lower=True, unit_diagonal=True)
-        Dinv_g[K, K] = sla.solve_triangular(np.asarray(lu.Udiag[K]), linv,
-                                            lower=False)
-    for K in range(nb0, nb):       # padding supernodes: identity diag
-        Dinv_g[K, K] = np.eye(b)
-
-    return (_shard_blocks(Lh_g, nb, b, pr, pc),
-            _shard_blocks(Dinv_g, nb, b, pr, pc))
+    with prepare_step("layout"):
+        Lh_g = np.zeros((nb, nb, b, b))
+        Dinv_g = np.zeros((nb, nb, b, b))
+        for (I, K), blk in Lhat.items():
+            Lh_g[I, K] = np.asarray(blk)
+        for K in range(nb0):
+            Dinv_g[K, K] = dinv[K]
+        for K in range(nb0, nb):       # padding supernodes: identity diag
+            Dinv_g[K, K] = np.eye(b)
+        return (_shard_blocks(Lh_g, nb, b, pr, pc),
+                _shard_blocks(Dinv_g, nb, b, pr, pc))
 
 
 def _batched_lu_nopivot(Akk: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -2144,47 +2196,57 @@ def prepare_values_many(mats: Sequence, bs: BlockStructure, nb: int,
     :func:`check_values_pattern` first."""
     if not len(mats):
         raise ValueError("prepare_values_many needs at least one matrix")
-    csr = []
-    for i, M in enumerate(mats):
-        try:
-            csr.append(check_values_pattern(M, bs, b))
-        except ValueError as e:
-            raise ValueError(f"matrix {i} of {len(mats)}: {e}") from e
-    B, nb0 = len(csr), bs.nsuper
+    _PREPARE_CALLS.inc()
+    B, nb0 = len(mats), bs.nsuper
     eye = np.eye(b)
+    with prepare_step("factor"):
+        csr = []
+        for i, M in enumerate(mats):
+            try:
+                csr.append(check_values_pattern(M, bs, b))
+            except ValueError as e:
+                raise ValueError(f"matrix {i} of {len(mats)}: {e}") from e
 
-    # dense (B, nb0, nb0, b, b) block workspace holding the evolving
-    # Schur complement; fill lands in blocks the symbolic structure
-    # already owns, so reading only struct blocks below is exact
-    W = np.stack([np.asarray(M.todense()) for M in csr])
-    W = (W.reshape(B, nb0, b, nb0, b).transpose(0, 1, 3, 2, 4)
-          .astype(np.float64, copy=True))
-    Lh = np.zeros((B, nb, nb, b, b))
-    Dinv = np.zeros((B, nb, nb, b, b))
-    bidx = np.arange(B)
-    for K in range(nb0):
-        L, U = _batched_lu_nopivot(W[:, K, K])
-        C = [int(i) for i in bs.struct[K]]
-        if C:
-            # L(C,K): X·U = A  ⇔  Uᵀ·Xᵀ = Aᵀ (batched, broadcast over C)
-            LCK = np.linalg.solve(
-                U.transpose(0, 2, 1)[:, None],
-                W[:, C, K].transpose(0, 1, 3, 2)).transpose(0, 1, 3, 2)
-            UKC = np.linalg.solve(L[:, None], W[:, K, C])   # L·X = A
-            W[:, C, K] = LCK
-            W[:, K, C] = UKC
-            # Schur update over the whole struct(K) × struct(K) clique
-            W[np.ix_(bidx, C, C)] -= np.einsum(
-                'bikl,bjlm->bijkm', LCK, UKC)
-            # L̂(C,K) = L(C,K)·L(K,K)⁻¹:  X·L = A  ⇔  Lᵀ·Xᵀ = Aᵀ
-            Lh[:, C, K] = np.linalg.solve(
-                L.transpose(0, 2, 1)[:, None],
-                LCK.transpose(0, 1, 3, 2)).transpose(0, 1, 3, 2)
-        linv = np.linalg.solve(L, np.broadcast_to(eye, (B, b, b)))
-        Dinv[:, K, K] = np.linalg.solve(U, linv)   # (U_KK)⁻¹(L_KK)⁻¹
-    Dinv[:, range(nb0, nb), range(nb0, nb)] = eye   # padding supernodes
-    return (_shard_blocks(Lh, nb, b, pr, pc),
-            _shard_blocks(Dinv, nb, b, pr, pc))
+        # dense (B, nb0, nb0, b, b) block workspace holding the evolving
+        # Schur complement; fill lands in blocks the symbolic structure
+        # already owns, so reading only struct blocks below is exact
+        W = np.stack([np.asarray(M.todense()) for M in csr])
+        W = (W.reshape(B, nb0, b, nb0, b).transpose(0, 1, 3, 2, 4)
+              .astype(np.float64, copy=True))
+        lh_cols, dinv = [], []
+        bidx = np.arange(B)
+        for K in range(nb0):
+            L, U = _batched_lu_nopivot(W[:, K, K])
+            C = [int(i) for i in bs.struct[K]]
+            if C:
+                # L(C,K): X·U = A  ⇔  Uᵀ·Xᵀ = Aᵀ (batched, broadcast
+                # over C)
+                LCK = np.linalg.solve(
+                    U.transpose(0, 2, 1)[:, None],
+                    W[:, C, K].transpose(0, 1, 3, 2)).transpose(0, 1, 3, 2)
+                UKC = np.linalg.solve(L[:, None], W[:, K, C])   # L·X = A
+                W[:, C, K] = LCK
+                W[:, K, C] = UKC
+                # Schur update over the whole struct(K) × struct(K) clique
+                W[np.ix_(bidx, C, C)] -= np.einsum(
+                    'bikl,bjlm->bijkm', LCK, UKC)
+                # L̂(C,K) = L(C,K)·L(K,K)⁻¹:  X·L = A  ⇔  Lᵀ·Xᵀ = Aᵀ
+                lh_cols.append((C, K, np.linalg.solve(
+                    L.transpose(0, 2, 1)[:, None],
+                    LCK.transpose(0, 1, 3, 2)).transpose(0, 1, 3, 2)))
+            linv = np.linalg.solve(L, np.broadcast_to(eye, (B, b, b)))
+            dinv.append(np.linalg.solve(U, linv))   # (U_KK)⁻¹(L_KK)⁻¹
+
+    with prepare_step("layout"):
+        Lh = np.zeros((B, nb, nb, b, b))
+        Dinv = np.zeros((B, nb, nb, b, b))
+        for C, K, blk in lh_cols:
+            Lh[:, C, K] = blk
+        for K in range(nb0):
+            Dinv[:, K, K] = dinv[K]
+        Dinv[:, range(nb0, nb), range(nb0, nb)] = eye   # padding supernodes
+        return (_shard_blocks(Lh, nb, b, pr, pc),
+                _shard_blocks(Dinv, nb, b, pr, pc))
 
 
 def prepare_inputs(A, b: int, pr: int, pc: int):

@@ -18,6 +18,13 @@ Every event is a standard Trace-Event ``X`` (complete) or ``M``
 normalised to its own zero origin (spans use ``perf_counter``, serve
 requests ``time.monotonic``; the epochs differ, so cross-source
 alignment would be fiction — lanes within a source are exact).
+
+One clock for spans and device work is the profiler's: while a
+``torch.profiler`` records, every span is also a profiler range
+(:mod:`.trace`), so the profiler's own trace holds the spans beside the
+device operations they launched; :func:`.graphmap.lanes` adds the
+sweep graph's phases and rounds to it from those operations
+(``tools/obs_report.py`` writes such a trace on the card).
 """
 from __future__ import annotations
 

@@ -3,13 +3,16 @@ PyTorch port (counterpart of ``repro/obs/rounds.py``).
 
 The α-per-round simulator *predicts* where the overlapped sweep spends
 its time and PlanLint's overload heuristic *warns* from the tables; this
-module *measures*. It re-executes the session's sweep as per-round (or
-per-level-chunk) segments — the very same code as the fused executor,
-cut at round boundaries by
-:func:`~repro_torch.core.pselinv_dist.make_sweep_segments` — each fenced
-with ``torch.cuda.synchronize()`` on the card (the counterpart of
-``block_until_ready``), and joins the measured walls against the plan's
-per-round wire tables and the α-β model:
+module *measures*. On the card it replays the captured graph of the
+session's overlapped sweep — the program a solve runs — ``reps`` times
+under ``torch.profiler`` (device activity only) and takes each round's
+device time from the graph's phase map (:mod:`.graphmap`), the mean over
+the replays. On the CPU, where there is no graph, it re-executes the
+sweep as per-round (or per-level-chunk) segments — the very same code as
+the fused executor, cut at round boundaries by
+:func:`~repro_torch.core.pselinv_dist.make_sweep_segments` — and times
+each on the host clock. Either way it joins the measured times against
+the plan's per-round wire tables and the α-β model:
 
 * **residuals** — ``measured[t] − simulated[t]`` per executed round
   (:func:`~repro_torch.core.simulator.simulated_round_times` applies the
@@ -24,13 +27,15 @@ per-round wire tables and the α-β model:
   pure-comm rounds.
 
 On one card the P ranks are virtual, so a "permute" is a device-memory
-gather/scatter and a segment's wall is mostly the host's launch time of
-its few kernels; the fit reads that, not a network.
+gather/scatter; the fit reads that, not a network. A round's device
+time holds its boundary's compute ops, its lane moves and its permute;
+``init_us`` is the arena's set-up, ``final_us`` the trailing boundary's
+compute and the extraction.
 
 The replay's final A⁻¹ is returned so callers can assert bit-identity
-against ``engine.solve`` (the segments are the sweep, not a model of
-it); the conformance tests additionally pin the round count and the
-per-round wire bytes to ``executed_wire_bytes``.
+against ``engine.solve`` (the graph and the segments are the sweep, not
+a model of it); the conformance tests additionally pin the round count
+and the per-round wire bytes to ``executed_wire_bytes``.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from ..core.pselinv_dist import make_sweep_segments
 from ..core.schedule import BYTES_PER_ELT
 from ..core.simulator import NetworkModel, simulated_round_times
 from ..core.verify import IMBALANCE_MAX
+from . import graphmap
 
 __all__ = ["RoundSample", "RoundProfile", "profile_rounds"]
 
@@ -56,7 +62,7 @@ class RoundSample:
 
     index: int                   #: segment position in the replay
     rounds: Tuple[int, ...]      #: plan round indices this segment ran
-    wall_us: float               #: fenced wall time, best of ``reps``
+    wall_us: float               #: device time (card) or host wall (CPU)
     sim_us: float                #: α-β cost of the same rounds
     wire_bytes: float            #: physical permute payload (padding incl.)
     lane_bytes: float            #: algorithmic lane bytes (plan edges)
@@ -79,8 +85,8 @@ class RoundProfile:
     b: int
     chunk: int
     samples: List[RoundSample]
-    init_us: float                   #: arena init + diagonal seeds segment
-    final_us: float                  #: trailing compute + extraction segment
+    init_us: float                   #: arena init + diagonal seeds
+    final_us: float                  #: trailing compute + extraction
     final_sim_us: float
     inbound_bytes: np.ndarray        #: (P,) algorithmic inbound bytes
     inbound_msgs: np.ndarray         #: (P,) algorithmic inbound lanes
@@ -89,11 +95,12 @@ class RoundProfile:
     """(nseg, P) inbound bytes per segment per rank — the exporter's
     per-rank lane payload."""
     ainv: Any = field(repr=False, default=None)  #: replay's A⁻¹ shards
+    graph: Optional[int] = None      #: id of the replayed graph (card)
 
     # -- joins ------------------------------------------------------------
     @property
     def wall_us(self) -> float:
-        """Total fenced wall of the replay (init + rounds + final)."""
+        """Total time of the replay (init + rounds + final)."""
         return (self.init_us + self.final_us
                 + sum(s.wall_us for s in self.samples))
 
@@ -135,9 +142,11 @@ class RoundProfile:
         """Least-squares (α seconds, β seconds/byte) over the measured
         rounds: ``wall ≈ α + β · max-pair-bytes``.  Pure-comm rounds
         (no boundary compute) are preferred; if they don't span two
-        distinct payload sizes the fit falls back to every round.  β is
-        clamped at 0 (a negative slope just means dispatch latency
-        dominates at this scale — α then carries the whole cost)."""
+        distinct payload sizes the fit falls back to every round.  Both
+        are held at 0 or above: a negative slope just means dispatch
+        latency dominates at this scale (α then carries the whole cost);
+        a negative intercept, that the small rounds ran fast (the line
+        then goes through the origin)."""
         pool = [s for s in self.samples if s.pure_comm and s.wire_bytes > 0]
         if len({s.wire_bytes for s in pool}) < 2:
             pool = [s for s in self.samples if s.wire_bytes > 0] or \
@@ -152,6 +161,8 @@ class RoundProfile:
         (alpha, beta), *_ = np.linalg.lstsq(A, y, rcond=None)
         if beta < 0:
             return float(y.mean()), 0.0
+        if alpha < 0:
+            return 0.0, float(x @ y / (x @ x))
         return float(alpha), float(beta)
 
     # -- reporting --------------------------------------------------------
@@ -217,6 +228,35 @@ def _chunk_boundaries(nrounds: int, chunk: int) -> List[int]:
     return cuts
 
 
+def _graph_rounds(engine, Lh, Dinv, dtype, nrounds: int, reps: int):
+    """Device µs of each round, of the init and of the final phases, a
+    replay: the mean over ``reps`` profiled replays of the class's
+    captured overlapped graph; and the last replay's A⁻¹."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runner = engine.profile_runner(dtype)
+    if runner.phases is None or not runner.phases.chain:
+        raise RuntimeError("profile_rounds: the captured sweep has no "
+                           "phase map to read")
+    runner(Lh, Dinv)                    # the copy-in's first use
+    torch.cuda.synchronize(Lh.device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(max(1, reps)):
+            ainv = runner(Lh, Dinv)
+        torch.cuda.synchronize(Lh.device)
+    att = graphmap.attribute(graphmap.trace_of(prof)["traceEvents"],
+                             graph=runner.gid)
+    if att is None or att["unmatched"]:
+        raise RuntimeError(f"profile_rounds: the profiled replays do not "
+                           f"match graph {runner.gid}'s phase map "
+                           f"({att and att['unmatched']} left out)")
+    us = {t: 1e6 * (v["product"] + v["rest"]) / att["replays"]
+          for t, v in att["round"].items()}
+    rounds = np.array([us.get(t, 0.0) for t in range(nrounds)])
+    return (rounds, us.get(-1, 0.0), us.get(nrounds, 0.0), ainv,
+            runner.gid)
+
+
 def profile_rounds(engine, values, *, chunk: int = 1, reps: int = 3,
                    dtype: torch.dtype = torch.float32,
                    model: Optional[NetworkModel] = None) -> RoundProfile:
@@ -225,9 +265,12 @@ def profile_rounds(engine, values, *, chunk: int = 1, reps: int = 3,
     schedule (stream sessions profile through the overlapped rounds
     their tables were lowered from); ``values`` is a matrix,
     :class:`SolveValues`, or an ``(Lh, Dinv)`` pair — single matrix
-    only (rank 5). Every segment runs once to warm up, then ``reps``
-    times, each call fenced (``torch.cuda.synchronize()`` on the card)
-    and timed on the host clock, keeping the per-segment minimum.
+    only (rank 5). On the card: ``reps`` profiled replays of the
+    captured graph (``engine.profile_runner``), each round's device time
+    their mean; ``chunk`` rounds make one sample. On the CPU: every
+    segment of ``chunk`` rounds runs once to warm up, then ``reps``
+    times, each timed on the host clock, keeping the per-segment
+    minimum.
 
     Prefer :meth:`PSelInvEngine.profile_rounds`, which forwards here."""
     prog = engine.program
@@ -246,36 +289,15 @@ def profile_rounds(engine, values, *, chunk: int = 1, reps: int = 3,
 
     nrounds = len(ov.rounds)
     boundaries = _chunk_boundaries(nrounds, chunk)
-    init, steps, final = make_sweep_segments(prog, tables, boundaries)
-    cuda = Lh.device.type == "cuda"
-
-    def fenced(fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if cuda:
-            torch.cuda.synchronize(Lh.device)
-        return out, (time.perf_counter() - t0) * 1e6
-
-    # warm-up pass: every segment once, with its first-call costs
-    if cuda:
-        torch.cuda.synchronize(Lh.device)
-    arena, _ = fenced(init, Lh, Dinv)
-    for step in steps:
-        arena, _ = fenced(step, arena, Lh, Dinv)
-    ainv, _ = fenced(final, arena, Lh, Dinv)
-
-    nseg = len(steps)
-    walls = np.full(nseg, np.inf)
-    init_wall = np.inf
-    final_wall = np.inf
-    for _ in range(max(1, reps)):
-        arena, us = fenced(init, Lh, Dinv)
-        init_wall = min(init_wall, us)
-        for i, step in enumerate(steps):
-            arena, us = fenced(step, arena, Lh, Dinv)
-            walls[i] = min(walls[i], us)
-        ainv, us = fenced(final, arena, Lh, Dinv)
-        final_wall = min(final_wall, us)
+    gid = None
+    if Lh.device.type == "cuda":
+        per_round, init_wall, final_wall, ainv, gid = _graph_rounds(
+            engine, Lh, Dinv, dtype, nrounds, reps)
+        walls = np.array([per_round[lo:hi].sum() for lo, hi
+                          in zip(boundaries, boundaries[1:])])
+    else:
+        walls, init_wall, final_wall, ainv = _fenced_segments(
+            prog, tables, boundaries, Lh, Dinv, reps)
 
     # ---- join against the plan tables ---------------------------------
     P_ = ov.pr * ov.pc
@@ -305,9 +327,9 @@ def profile_rounds(engine, values, *, chunk: int = 1, reps: int = 3,
         inbound_msgs += seg_msgs
         rank_bytes[i] = seg_in
         if seg_in.sum() > 0:
-            # attribute the fenced wall to ranks by inbound share — a
-            # dashboard statistic, not a per-rank measurement (the BSP
-            # fence can't see inside a round)
+            # attribute the round's time to ranks by inbound share — a
+            # dashboard statistic, not a per-rank measurement (the ranks
+            # of a round run as one set of kernels)
             inbound_time += walls[i] * seg_in / seg_in.sum()
         samples.append(RoundSample(
             index=i, rounds=tuple(range(lo, hi)),
@@ -320,4 +342,36 @@ def profile_rounds(engine, values, *, chunk: int = 1, reps: int = 3,
         init_us=float(init_wall), final_us=float(final_wall),
         final_sim_us=float(sim[nrounds]),
         inbound_bytes=inbound_bytes, inbound_msgs=inbound_msgs,
-        inbound_time_us=inbound_time, rank_bytes=rank_bytes, ainv=ainv)
+        inbound_time_us=inbound_time, rank_bytes=rank_bytes, ainv=ainv,
+        graph=gid)
+
+
+def _fenced_segments(prog, tables, boundaries, Lh, Dinv, reps: int):
+    """Host µs of each segment, of the init and of the final (the
+    minimum of ``reps`` timed passes after one warm-up pass), and the
+    last pass's A⁻¹."""
+    init, steps, final = make_sweep_segments(prog, tables, boundaries)
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, (time.perf_counter() - t0) * 1e6
+
+    # warm-up pass: every segment once, with its first-call costs
+    arena, _ = timed(init, Lh, Dinv)
+    for step in steps:
+        arena, _ = timed(step, arena, Lh, Dinv)
+    ainv, _ = timed(final, arena, Lh, Dinv)
+
+    walls = np.full(len(steps), np.inf)
+    init_wall = np.inf
+    final_wall = np.inf
+    for _ in range(max(1, reps)):
+        arena, us = timed(init, Lh, Dinv)
+        init_wall = min(init_wall, us)
+        for i, step in enumerate(steps):
+            arena, us = timed(step, arena, Lh, Dinv)
+            walls[i] = min(walls[i], us)
+        ainv, us = timed(final, arena, Lh, Dinv)
+        final_wall = min(final_wall, us)
+    return walls, float(init_wall), float(final_wall), ainv

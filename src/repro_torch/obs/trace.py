@@ -19,6 +19,17 @@ Design constraints, in order:
    ``spans()`` snapshots.
 3. **Bounded memory.**  The buffer is a ``deque(maxlen=capacity)``;
    overflow drops the *oldest* span and bumps ``tracer.dropped``.
+4. **One clock with the device.**  While a ``torch.profiler`` records,
+   every span also opens a ``record_function`` range of its name — even
+   on a disabled tracer — so the spans sit in the profiler's trace,
+   beside the kernels they launched, on the profiler's clock. The
+   range's name carries the attributes in :data:`RANGE_ATTRS`
+   (``graph.replay graph=3``), which name what a launch ran. With no
+   profiler and the tracer disabled, ``span()`` is the null span.
+
+A span opened inside another inherits the attributes in
+:data:`INHERITED` it does not set itself: the ``call`` id of an
+``engine.solve`` span is shared by the spans of that call.
 
 Typical use::
 
@@ -38,7 +49,19 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["Span", "Tracer", "TRACER"]
+import torch.autograd.profiler as _profiler
+
+__all__ = ["Span", "Tracer", "TRACER", "RANGE_ATTRS", "INHERITED"]
+
+#: attributes a profiler range carries in its name
+RANGE_ATTRS = ("graph",)
+#: attributes a span takes from the span it opens inside
+INHERITED = ("call",)
+
+
+def _range_name(name: str, attrs: Dict[str, Any]) -> str:
+    return name + "".join(f" {k}={attrs[k]}" for k in RANGE_ATTRS
+                          if k in attrs)
 
 
 @dataclass(frozen=True)
@@ -80,11 +103,32 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+class _RangeSpan:
+    """A disabled tracer's span while a profiler records: the profiler
+    range alone, nothing buffered."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str) -> None:
+        self._range = _profiler.record_function(name)
+
+    def __enter__(self) -> "_RangeSpan":
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._range.__exit__(*exc)
+        return False
+
+    def set(self, **attrs: Any) -> "_RangeSpan":
+        return self
+
+
 class _ActiveSpan:
     """A live span: context manager that records itself on exit."""
 
     __slots__ = ("_tracer", "name", "attrs", "span_id", "parent_id",
-                 "tid", "_t0_ns")
+                 "tid", "_t0_ns", "_range")
 
     def __init__(self, tracer: "Tracer", name: str,
                  attrs: Dict[str, Any]) -> None:
@@ -95,6 +139,7 @@ class _ActiveSpan:
         self.parent_id = None
         self.tid = 0
         self._t0_ns = 0
+        self._range = None
 
     def set(self, **attrs: Any) -> "_ActiveSpan":
         """Attach/overwrite attributes mid-span; chainable."""
@@ -103,15 +148,25 @@ class _ActiveSpan:
 
     def __enter__(self) -> "_ActiveSpan":
         stack = self._tracer._stack()
-        self.parent_id = stack[-1].span_id if stack else None
+        if stack:
+            self.parent_id = stack[-1].span_id
+            for k in INHERITED:
+                if k in stack[-1].attrs:
+                    self.attrs.setdefault(k, stack[-1].attrs[k])
         self.tid = threading.get_ident()
         stack.append(self)
+        if _profiler._is_profiler_enabled:     # a profiler records
+            self._range = _profiler.record_function(
+                _range_name(self.name, self.attrs))
+            self._range.__enter__()
         # read the clock last so setup cost is outside the measured window
         self._t0_ns = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         t1_ns = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         stack = self._tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -164,8 +219,11 @@ class Tracer:
 
     # -- emission ---------------------------------------------------------
     def span(self, name: str, **attrs: Any):
-        """Open a span.  Disabled tracers return the shared null span."""
+        """Open a span.  Disabled tracers return the shared null span,
+        or while a profiler records a bare profiler range."""
         if not self.enabled:
+            if _profiler._is_profiler_enabled:  # a profiler records
+                return _RangeSpan(_range_name(name, attrs))
             return _NULL
         return _ActiveSpan(self, name, attrs)
 

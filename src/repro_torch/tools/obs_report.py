@@ -6,13 +6,21 @@ Chrome-trace/Perfetto file plus the inbound-imbalance table.
   ``PSelInvEngine.analyze`` → ``prepare_values`` → ``solve``, so the
   host spans (plan, upload, factorization, solve dispatch) land in its
   buffer;
-- replays the overlapped sweep through ``engine.profile_rounds()`` —
-  each segment fenced by a synchronize — joining measured walls against
+- profiles the overlapped sweep through ``engine.profile_rounds()`` —
+  on the card the device time of each round of the captured graph, on
+  the CPU each segment timed on the host — joining the times against
   the plan's wire tables and the α-β model (a Cray XC30, not the card);
-- writes spans, the round timeline with per-rank inbound bytes and,
-  with ``--serve N``, N served requests' lifecycles, to one
+- on the CPU, writes spans, the round timeline with per-rank inbound
+  bytes and, with ``--serve N``, N served requests' lifecycles, to one
   ``*.trace.json`` (``chrome://tracing``, ``ui.perfetto.dev``) through
-  ``obs/export.py``;
+  ``obs/export.py``, each source on its own clock;
+- on the card, runs one more solve under ``torch.profiler`` and writes
+  its trace, one clock for all: the spans (as the profiler's ranges),
+  the device operations, and two lanes of the graph's phase map
+  (:mod:`repro_torch.obs.graphmap`): one of phases, one of rounds with
+  each round's permute bytes; and prints its device time by group of
+  phases (``graphmap.split``). Served requests (``--serve``) are timed
+  on the host's monotonic clock and stay out of it;
 - prints ``RoundProfile.report()``.
 
 All ranks run on one device, so nothing re-executes for a device count.
@@ -55,6 +63,32 @@ def _serve_lanes(n: int, device):
         return srv.recent_requests()
 
 
+#: the trace's process of the phase and round lanes
+_PID_GRAPH = 1 << 20
+
+
+def _device_trace(out: str, solve, dev) -> None:
+    """``solve()`` once under ``torch.profiler`` (host and device), its
+    trace written to ``out`` with the lanes of the graph's phase map."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..obs import graphmap
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve()
+        torch.cuda.synchronize(dev)
+    doc = graphmap.trace_of(prof)
+    doc["traceEvents"] += graphmap.lanes(doc["traceEvents"], _PID_GRAPH)
+    with open(out, "w") as f:
+        json.dump(doc, f, separators=(",", ":"))
+    got = graphmap.split(graphmap.attribute(doc["traceEvents"]))
+    if got is not None:
+        print("[obs-report] device ms of the traced solve: " + ", ".join(
+            f"{k} {1e3 * v:.3f}" for k, v in got.items()))
+
+
 def run_case(nb: int, pr: int, pc: int, *, chunk: int, reps: int,
              serve: int, out: str, skew_threshold: float,
              device="cuda") -> int:
@@ -78,18 +112,22 @@ def run_case(nb: int, pr: int, pc: int, *, chunk: int, reps: int,
             torch.cuda.synchronize(dev)
         profile = eng.profile_rounds(vals, chunk=chunk, reps=reps)
         requests = _serve_lanes(serve, dev) if serve else None
+        if dev.type == "cuda":
+            _device_trace(out, lambda: eng.solve(vals), dev)
     finally:
         TRACER.disable()
 
-    write_trace(out, spans=TRACER.spans(), profile=profile,
-                requests=requests)
+    if dev.type != "cuda":
+        write_trace(out, spans=TRACER.spans(), profile=profile,
+                    requests=requests)
     with open(out) as f:
         nev = len(json.load(f)["traceEvents"])
     print(f"[obs-report] laplacian_2d({nb},8) b=8 grid {pr}x{pc} on "
           f"{dev}: {len(TRACER.spans())} span(s), {profile.nrounds} "
           f"round(s)" + (f", {len(requests)} request(s)" if requests
                          else ""))
-    print(f"[obs-report] wrote {out} ({nev} trace events)")
+    print(f"[obs-report] wrote {out} ({nev} trace events"
+          + (", one clock" if dev.type == "cuda" else "") + ")")
     print()
     print(profile.report())
 

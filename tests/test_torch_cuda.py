@@ -508,6 +508,89 @@ def test_profile_replay_equals_solve_on_the_card(cuda_device, executor):
         assert all(s.wall_us > 0 for s in prof.samples)
 
 
+def _profiled_events(fn):
+    """Chrome-trace events of ``fn()`` under the profiler (host and
+    device)."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+
+
+def test_phase_map_attributes_every_replay_on_the_card(cuda_device):
+    """The captured graph's phase map holds every device node of the
+    graph; every profiled replay matches it; the products are the GEMM
+    nodes and the copies the runner's; the rounds of ``profile_rounds``
+    with its init and final make up a replay's busy time, and its A⁻¹ is
+    the solve's."""
+    from repro_torch.obs import graphmap
+    A = _executor_cases()["fem"]
+    eng = PSelInvEngine.analyze(A, b=8, grid=Grid(4, 2),
+                                options=EXECUTORS["overlapped"])
+    vals = eng.prepare_values(A)
+    ref = eng.solve(vals, dtype=torch.float64)
+    run = eng._fns[(False, 1, torch.float64)]
+    pm = run.phases
+    assert pm.chain and graphmap.lookup(run.gid) is pm
+    assert sum(n.kind == "kernel" for n in pm.nodes) == run.graph_kernels
+    assert sum(n.product for n in pm.nodes if n.phase == "gemm") == \
+        run.gemm_nodes
+    assert set(pm.permute_bytes) == {
+        t for t, ln in enumerate(eng.tables.comm) if ln is not None}
+    events = _profiled_events(
+        lambda: [eng.solve(vals, dtype=torch.float64) for _ in range(3)])
+    att = graphmap.attribute(events)
+    assert att["replays"] == 3 and att["unmatched"] == 0
+    assert att["other"] == 0.0 and att["copy"] > 0
+    assert att["graphs"] == {run.gid: 3}
+    total = sum(v["product"] + v["rest"] for v in att["phase"].values())
+    assert total == pytest.approx(sum(
+        v["product"] + v["rest"] for v in att["round"].values()), rel=1e-12)
+    assert sum(graphmap.split(att).values()) == pytest.approx(
+        total + att["copy"], rel=1e-12)
+    prof = eng.profile_rounds(vals, reps=3, dtype=torch.float64)
+    assert torch.equal(prof.ainv, ref) and prof.graph == run.gid
+    per_replay_us = 1e6 * total / 3
+    assert prof.wall_us == pytest.approx(per_replay_us, rel=0.05)
+
+
+def test_obs_report_writes_one_clock_on_the_card(cuda_device, tmp_path):
+    """On the card the report's trace is the profiler's: the solve's
+    spans, its device operations and the graph's phase and round lanes
+    on one clock."""
+    import json
+
+    from repro_torch.tools import obs_report
+    out = tmp_path / "t.trace.json"
+    assert obs_report.run_case(16, 4, 2, chunk=1, reps=2, serve=0,
+                               out=str(out), skew_threshold=4.0) == 0
+    events = json.loads(out.read_text())["traceEvents"]
+    names = {e.get("name") for e in events
+             if e.get("cat") == "user_annotation"}
+    assert {"engine.solve", "graph.copy_in", "graph.clone"} <= names
+    assert any(n.startswith("graph.replay graph=") for n in names)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    lanes = [e for e in events if e.get("cat") == "sweep"]
+    assert {e["tid"] for e in lanes} == {0, 1}
+    assert sum(e["name"].startswith("round ") for e in lanes) == 30
+    t0 = min(float(e["ts"]) for e in kernels)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in kernels)
+    assert all(t0 <= float(e["ts"]) <= t1 for e in lanes)
+
+
 @pytest.mark.parametrize("name", ["lap", "fem"])
 def test_stream_padded_levels_give_the_same_bits(cuda_device, name):
     """The stream's level tables run NK-padded (as the JAX stream does)

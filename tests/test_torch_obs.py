@@ -252,3 +252,25 @@ def test_chrome_trace_has_the_reference_schema(tmp_path):
     path = write_trace(str(tmp_path / "t.trace.json"), profile=prof)
     with open(path) as f:
         assert json.load(f)["traceEvents"]
+
+
+@pytest.mark.parametrize("walls,want", [
+    # α = 2 µs, β = 1 ns a byte (two ranks, so a pair's bytes are half)
+    ((4.0, 6.0, 8.0), (2e-6, 1e-9)),
+    # the small round ran fast: the line through the data crosses below
+    # 0, so the fit goes through the origin instead
+    ((1.0, 6.0, 11.0), (0.0, (2 * 1 + 4 * 6 + 6 * 11) / 56 * 1e-12 * 1e3)),
+])
+def test_alpha_beta_fit_stays_non_negative(walls, want):
+    import numpy as np
+
+    from repro_torch.obs.rounds import RoundProfile, RoundSample
+    samples = [RoundSample(index=i, rounds=(i,), wall_us=w, sim_us=0.0,
+                           wire_bytes=b, lane_bytes=b, msgs=1,
+                           compute_ops=0, pure_comm=True)
+               for i, (w, b) in enumerate(zip(walls, (4e3, 8e3, 12e3)))]
+    z = np.zeros(2)
+    prof = RoundProfile(nrounds=3, nranks=2, b=8, chunk=1, samples=samples,
+                        init_us=0.0, final_us=0.0, final_sim_us=0.0,
+                        inbound_bytes=z, inbound_msgs=z, inbound_time_us=z)
+    assert prof.fit_alpha_beta() == pytest.approx(want, rel=1e-9, abs=1e-15)
