@@ -16,8 +16,10 @@ on the card:
 2. holds each kernel against its plain PyTorch version and times it
    beside the card's bound, the plain version and one library call used
    only as a yardstick: the block GEMM in f32, bf16 and f64 on the shapes
-   of ``tests/test_kernels.py`` and the main path's batched shapes
-   (``torch.matmul``); trsm in f32/bf16/f64 up to (4096, 256), and at
+   of ``tests/test_kernels.py`` and, under a struct mask keeping up to 8
+   of 64 column blocks a row, the main path's batched shapes (the masked
+   instance, also held bitwise to the dense one on the masked Û;
+   ``torch.matmul``); trsm in f32/bf16/f64 up to (4096, 256), and at
    (96, 96) with the serial path's zero rows
    (``torch.linalg.solve_triangular``); RMSNorm in f32/bf16 up to
    qwen3-32b's widths, one kernel a call (``F.rms_norm``); flash attention
@@ -508,8 +510,9 @@ def compiled_checks(libs, logs):
     return sass, ptxas
 
 
-def gemm_symbol(dtype_name, p):
-    return f"block_gemm_kernel<{CTYPE[dtype_name]}, {p.bn}>"
+def gemm_symbol(dtype_name, p, masked):
+    return (f"block_gemm_kernel<{CTYPE[dtype_name]}, {p.bn}, "
+            f"{'true' if masked else 'false'}>")
 
 
 def flash_symbol(p, hd):
@@ -528,6 +531,37 @@ def flash_symbol(p, hd):
 # and 14; DG (b=128): m=4096, k=8192, n=128 (its tree is a chain: nk = 1)
 MAIN_SHAPES = [("fem", 8, 32, 64, 96, 1), ("fem", 8, 32, 64, 96, 14),
                ("dg", 8, 32, 64, 128, 1)]
+# the most column blocks a (rank, k) row of the FEM setting's struct mask
+# keeps (of 64; 7.57 % of them over its 35 levels)
+MASK_KEEP_MAX = 8
+
+
+def struct_mask(rng, Z, nk, nbc, keep_max=MASK_KEEP_MAX):
+    """A (Z, nk, nbc) bool mask shaped like a level's struct mask: each
+    (rank, k) row keeps 0 to ``keep_max`` column blocks at random
+    places."""
+    import numpy as np
+    m = np.zeros((Z, nk, nbc), bool)
+    for z in range(Z):
+        for k in range(nk):
+            m[z, k, rng.permutation(nbc)[:rng.integers(0, keep_max + 1)]] \
+                = True
+    return m
+
+
+def masked_bound(cm, nbr, b, dtype_name, elt):
+    """Least time (ms) of the masked level product over ``cm`` (Z, nk,
+    nbc): 2·b³·nbr operations a kept block, against the bytes of the A⁻¹
+    column blocks some k of an item keeps, the kept Û blocks and the
+    partials, each moved once; and which of the two binds."""
+    Z, nk, _ = cm.shape
+    kept = int(cm.sum())
+    a_cols = int(cm.any(axis=1).sum())
+    t_bytes = (nbr * a_cols + kept + Z * nk * nbr) * b * b * elt \
+        / HBM_BYTES_PER_S
+    t_ops = 2.0 * b ** 3 * nbr * kept / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def kernel_checks(dev, main_shapes=MAIN_SHAPES):
@@ -555,44 +589,63 @@ def kernel_checks(dev, main_shapes=MAIN_SHAPES):
         log(f"kernel {m}x{k}x{n}: f32/bf16/f64, alpha ±1 ok "
             f"(last max|Δ| {err:.2e})")
 
+    # the main path's level products take the struct mask: the masked
+    # instance, bitwise the dense one on the masked Û and within TOL of
+    # the plain product, timed beside both over the same masked Û
     rows = []
     for setting, Z, nbr, nbc, b, nk in main_shapes:
         M, K, N = nbr * b, nbc * b, nk * b
+        cm_host = struct_mask(rng, Z, nk, nbc)
+        cm = torch.from_numpy(cm_host).to(dev)
+        kept = int(cm_host.sum())
         for name in ("float64", "float32", "bfloat16"):
             dt = dtypes[name]
             A = torch.randn(Z, nbr, nbc, b, b, dtype=torch.float64,
                             device=dev).to(dt)
             U = torch.randn(Z, nk, nbc, b, b, dtype=torch.float64,
                             device=dev).to(dt)
-            out = bg.blocked_gemm(A, U)
-            ref = bg.blocked_gemm_plain(A, U)
+            Um = bg.mask_uh(U, cm)
+            out = bg.blocked_gemm(A, U, cmask=cm)
+            dense = bg.blocked_gemm(A, Um)
+            ref = bg.blocked_gemm_plain(A, Um)
             torch.cuda.synchronize()
-            err = compare(out, ref, name, f"{setting} Z={Z} {M}x{K}x{N}")
+            what = (f"{setting} Z={Z} {M}x{K}x{N}, mask keeping {kept} of "
+                    f"{cm.numel()} blocks")
+            if not torch.equal(out, dense):
+                raise AssertionError(f"block_gemm {name} {what}: the "
+                                     "masked kernel is not bitwise the "
+                                     "dense kernel on the masked U")
+            err = compare(out, ref, name, what)
             p = bg.plan(M, N, K, dt, bg.blocked_desc(A.stride(), U.stride(),
                                                      out.stride(), b),
                         (A.data_ptr(), U.data_ptr()))
             a2 = A.permute(0, 1, 3, 2, 4).reshape(Z, M, K).contiguous()
-            b2 = U.permute(0, 2, 4, 1, 3).reshape(Z, K, N).contiguous()
-            ms = timed_ms(lambda: bg.blocked_gemm(A, U, out=out))
-            plain_ms = timed_ms(lambda: bg.blocked_gemm_plain(A, U))
+            b2 = Um.permute(0, 2, 4, 1, 3).reshape(Z, K, N).contiguous()
+            ms = timed_ms(lambda: bg.blocked_gemm(A, U, out=out, cmask=cm))
+            dense_ms = timed_ms(lambda: bg.blocked_gemm(A, Um, out=dense))
+            plain_ms = timed_ms(lambda: bg.blocked_gemm_plain(A, Um))
             lib_ms = timed_ms(lambda: torch.matmul(a2, b2))
-            bms, by = bound(Z, M, N, K, name, A.element_size())
+            bms, by = masked_bound(cm_host, nbr, b, name, A.element_size())
             rows.append(dict(setting=setting, dtype=name, Z=Z, m=M, k=K,
-                             n=N, ms=ms, plain_ms=plain_ms,
+                             n=N, kept_blocks=kept, blocks=cm.numel(),
+                             ms=ms, dense_ms=dense_ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bms, bound_by=by,
                              max_abs_err=err,
-                             tflops=2.0 * Z * M * N * K / ms / 1e9,
+                             tflops=2.0 * b ** 3 * nbr * kept / ms / 1e9,
                              variant=p.variant,
                              tile=f"{p.bm}x{p.bn}x{p.bk}",
                              staging="cp.async" if p.a_async and p.b_async
                              else f"a_async={p.a_async} b_async={p.b_async}",
-                             symbol=gemm_symbol(name, p)))
-            log(f"kernel {setting} {name} Z={Z} m={M} k={K} n={N} "
-                f"[{p.variant} {p.bm}x{p.bn}x{p.bk}, {rows[-1]['staging']}]: "
-                f"{ms:.3f} ms ({rows[-1]['tflops']:.1f} TFLOP/s), plain "
+                             symbol=gemm_symbol(name, p, b in bg.MASKED_BS)))
+            log(f"kernel {setting} {name} Z={Z} m={M} k={K} n={N}, "
+                f"{kept}/{cm.numel()} blocks kept "
+                f"[{p.variant} {p.bm}x{p.bn}x{p.bk}, {rows[-1]['staging']}, "
+                f"masked]: {ms:.3f} ms ({rows[-1]['tflops']:.1f} TFLOP/s "
+                f"on kept blocks), dense kernel {dense_ms:.3f} ms, plain "
                 f"{plain_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound "
-                f"{bms:.3f} ms ({by}), max|Δ| {err:.2e}")
-            del A, U, out, ref, a2, b2
+                f"{bms:.3f} ms ({by}), max|Δ| {err:.2e}, bitwise the dense "
+                f"kernel")
+            del A, U, Um, out, dense, ref, a2, b2
     torch.cuda.empty_cache()
     return rows
 
@@ -5027,7 +5080,9 @@ def main() -> int:
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": f"Z={head['Z']} m={head['m']} k={head['k']} "
-                 f"n={head['n']} float64",
+                 f"n={head['n']} float64, mask keeping "
+                 f"{head['kept_blocks']}/{head['blocks']} blocks",
+        "dense_ms": head["dense_ms"],
         "variant": head["variant"], "tile": head["tile"],
         "variants": variants["block_gemm"], "ptxas": head.get("ptxas"),
     }]

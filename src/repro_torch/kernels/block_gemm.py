@@ -11,7 +11,8 @@ Two entry points share the one kernel:
   ``partial[z, k, i] = Σ_j ainv[z, i, j] @ uh[z, k, j]ᵀ`` over blocked
   ``(Z, nbr, nbc, b, b)`` / ``(Z, nk, nbc, b, b)`` tensors, read (and
   written, through ``out``) where they lie — views into the sweep's
-  arena included — without the reshape copies of the JAX package.
+  arena included — without the reshape copies of the JAX package; with
+  the level's struct mask, the sum runs over the kept ``j`` only.
 
 A CPU tensor goes to the plain PyTorch version beside each entry point
 (:func:`block_gemm_plain`, :func:`blocked_gemm_plain`): the same
@@ -36,12 +37,14 @@ import torch
 from . import _build
 
 __all__ = ["block_gemm", "blocked_gemm", "block_gemm_plain",
-           "blocked_gemm_plain", "acc_dtype", "launches", "SUPPORTED",
-           "plans", "GemmPlan", "plan", "rowmajor_desc", "blocked_desc"]
+           "blocked_gemm_plain", "mask_uh", "acc_dtype", "launches",
+           "SUPPORTED", "plans", "GemmPlan", "plan", "rowmajor_desc",
+           "blocked_desc", "MASKED_BS"]
 
 #: kernel launches since import (or since a caller last reset it)
 launches = 0
-#: the same launches by (variant, bn, a_async, b_async) of their plan
+#: the same launches by (variant, bn, a_async, b_async) of their plan,
+#: and "masked" last for those whose K loop the struct mask cut
 plans: collections.Counter = collections.Counter()
 
 #: dtype → the kernel's type code (f32 / bf16 / f64)
@@ -64,8 +67,12 @@ _TILES = {
     torch.bfloat16: ("hmma_bf16", 64, 32, 3, lambda bn: 128),
     torch.float32: ("fma_f32", 128, 16, 3, lambda bn: 2 * bn),
 }
-#: the compiled N tiles; a level product takes BN = b where b is one
+#: the compiled N tiles
 BNS = (64, 96, 128)
+#: the column blocks b that a level product takes as its N tile: BN = b
+#: makes an N tile one k, so a block reads one row of the struct mask and
+#: the kernel masks the product itself
+MASKED_BS = BNS[1:]
 _ELT = {torch.float64: 8, torch.float32: 4, torch.bfloat16: 2}
 
 
@@ -146,7 +153,7 @@ def _plan(M, N, K, dtype, desc, a_mis, b_mis) -> GemmPlan:
     vec = 16 // elt
     a, bd = desc[0:7], desc[7:14]
     cblk_b = bd[4]
-    if cblk_b in BNS[1:]:
+    if cblk_b in MASKED_BS:
         bn = cblk_b
     else:
         bn = next((c for c in BNS[::-1] if N % c == 0), BNS[0])
@@ -174,6 +181,8 @@ def _kernel():
                       ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                      ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int,
                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
@@ -196,27 +205,34 @@ def _check(*ts: torch.Tensor) -> str:
     return dev.type
 
 
-def _launch(a, b, c, M, N, K, Z, alpha, desc) -> None:
+def _launch(a, b, c, M, N, K, Z, alpha, desc, mask=None) -> None:
     """One kernel launch on the current stream, as :func:`plan` chooses
-    it; raises on a refused launch (the C side returns
-    ``cudaGetLastError()``)."""
+    it; ``mask``, a bool (Pm, nk, nbc) struct mask, cuts the K loop to
+    the column blocks it keeps. Raises on a refused launch (the C side
+    returns ``cudaGetLastError()``)."""
     global launches
     if Z > 65535:
         raise ValueError(f"batch {Z} exceeds the grid's z limit 65535")
     p = plan(M, N, K, a.dtype, desc, (a.data_ptr(), b.data_ptr()))
     arr = (ctypes.c_longlong * 21)(*[int(v) for v in desc])
+    if mask is None:
+        mptr, pm, nbc, mst = None, 0, 0, None
+    else:
+        mptr, pm, nbc = mask.data_ptr(), mask.shape[0], mask.shape[2]
+        mst = (ctypes.c_longlong * 3)(*mask.stride())
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         err = _kernel()(SUPPORTED[a.dtype], p.bm, p.bn, p.bk,
                         int(p.a_async), int(p.b_async), a.data_ptr(),
                         b.data_ptr(), c.data_ptr(), M, N, K, Z,
-                        float(alpha), arr, stream)
+                        float(alpha), arr, mptr, pm, nbc, mst, stream)
     if err != 0:
         raise RuntimeError(f"block_gemm kernel launch failed: CUDA error "
                            f"{err} (M={M}, N={N}, K={K}, Z={Z}, "
-                           f"{a.dtype}, {p})")
+                           f"{a.dtype}, {p}, masked={mask is not None})")
     launches += 1
-    plans[(p.variant, p.bn, p.a_async, p.b_async)] += 1
+    key = (p.variant, p.bn, p.a_async, p.b_async)
+    plans[key + ("masked",) if mask is not None else key] += 1
 
 
 # ---- row-major stacks ------------------------------------------------------
@@ -255,6 +271,14 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor,
 
 # ---- the sweep's blocked level product ------------------------------------
 
+def mask_uh(uh: torch.Tensor, cmask: torch.Tensor) -> torch.Tensor:
+    """``where(cmask, uh, 0)`` with item z of ``uh (Z, nk, nbc, b, b)``
+    masked by row ``z % Pm`` of the bool ``cmask (Pm, nk, nbc)``: the Û
+    the dense level product multiplies."""
+    cm = cmask.repeat(uh.shape[0] // cmask.shape[0], 1, 1)
+    return torch.where(cm[..., None, None], uh, 0.0)
+
+
 def blocked_gemm_plain(ainv: torch.Tensor, uh: torch.Tensor) -> torch.Tensor:
     """``partial[z, k, i] = Σ_j ainv[z, i, j] @ uh[z, k, j]ᵀ`` as one 2-D
     product per z (the JAX package's reshape/transpose layout,
@@ -274,12 +298,21 @@ def blocked_gemm_plain(ainv: torch.Tensor, uh: torch.Tensor) -> torch.Tensor:
 
 
 def blocked_gemm(ainv: torch.Tensor, uh: torch.Tensor,
-                 out: torch.Tensor | None = None) -> torch.Tensor:
+                 out: torch.Tensor | None = None,
+                 cmask: torch.Tensor | None = None) -> torch.Tensor:
     """The level product over ``ainv (Z, nbr, nbc, b, b)`` and
     ``uh (Z, nk, nbc, b, b)``, returning ``(Z, nk, nbr, b, b)``. Each
     (b, b) block must be contiguous; the block grids may be strided
     views. ``out``, when given, receives the result in place and must
-    not overlap the inputs."""
+    not overlap the inputs.
+
+    ``cmask``, when given, is the level's struct mask ``(Pm, nk, nbc)``,
+    bool or 0/1 values, with Z a multiple of Pm: item z sums over the
+    column blocks j that row ``z % Pm`` keeps, the product with
+    :func:`mask_uh`. For b in :data:`MASKED_BS` on the card the kernel
+    reads the mask where it lies and skips the other blocks, bitwise the
+    dense product of the masked Û (A⁻¹ finite); for any other b, and on
+    the CPU, Û is masked first and the product is dense."""
     dev = _check(ainv, uh) if out is None else _check(ainv, uh, out)
     if ainv.dim() != 5 or uh.dim() != 5:
         raise ValueError(f"blocked_gemm takes rank-5 block grids, got "
@@ -293,6 +326,19 @@ def blocked_gemm(ainv: torch.Tensor, uh: torch.Tensor,
     if out is not None and tuple(out.shape) != oshape:
         raise ValueError(f"out has shape {tuple(out.shape)}, "
                          f"expected {oshape}")
+    if cmask is not None:
+        if cmask.dim() != 3 or tuple(cmask.shape[1:]) != (nk, nbc) \
+                or not cmask.shape[0] or Z % cmask.shape[0]:
+            raise ValueError(f"cmask has shape {tuple(cmask.shape)}, "
+                             f"expected (Pm, {nk}, {nbc}) with Pm "
+                             f"dividing Z = {Z}")
+        if cmask.device != ainv.device:
+            raise ValueError(f"device mismatch: {ainv.device} vs "
+                             f"{cmask.device}")
+        if cmask.dtype != torch.bool:
+            cmask = cmask != 0
+        if dev != "cuda" or b not in MASKED_BS:
+            uh, cmask = mask_uh(uh, cmask), None
     if dev == "cpu":
         res = blocked_gemm_plain(ainv, uh)
         if out is None:
@@ -308,5 +354,6 @@ def blocked_gemm(ainv: torch.Tensor, uh: torch.Tensor,
                              f"in {name}, got strides {t.stride()}")
     if Z and nbr and nk:
         desc = blocked_desc(ainv.stride(), uh.stride(), out.stride(), b)
-        _launch(ainv, uh, out, nbr * b, nk * b, nbc * b, Z, 1.0, desc)
+        _launch(ainv, uh, out, nbr * b, nk * b, nbc * b, Z, 1.0, desc,
+                cmask)
     return out

@@ -63,17 +63,31 @@
 // banks.  Dynamic shared memory is raised per instance with
 // cudaFuncSetAttribute.
 //
+// The struct mask.  On the level product a rank's U^ row block k keeps few
+// of its nbc column blocks j: the FEM setting's 35 levels keep 4,920 of
+// 65,024 (rank, k, j) blocks (7.57 %, at most 8 of 64 a row).  Given the
+// mask (`mask` non-null; BN = b, so an N tile is one k), a block reads its
+// (z, k) row of it, compacts the kept j into shared memory by a warp
+// ballot, and runs the K loop over their slabs only: the product with
+// where(mask, U^, 0), bit for bit, in 13.2x fewer multiply-adds there.
+// Without it (the row-major entry, any caller that gives none) the loop
+// spans K.
+//
 // What bounds it.  At the main-path shapes of the FEM setting (P = 8 ranks,
-// m = nbr*b = 3072, k = nbc*b = 6144, n = nk*96 with nk = 1..14) the work is
-// 2*m*n*k flops against m*k reads of A^-1 per rank: n/4 flops per byte of
-// A^-1 in f64, n/2 in f32, n in bf16.  Against H100 SXM peaks (3.35 TB/s;
-// 67 TFLOP/s f64 on DMMA, 67 TFLOP/s f32 on FMA, 989 TFLOP/s bf16) the ridge
-// sits near n = 80 in f64, n = 40 in f32 and n = 295 in bf16.  So every f64
-// launch (n >= 96) is bound by DMMA issue; bf16 launches with nk <= 3 are
-// bound by reading A^-1 (which BN = b reads once) and the wide ones by HMMA,
-// where mma.sync tops out well below the 989 TFLOP/s that needs wgmma.  This
-// kernel reaches a bit over half of the DMMA peak (PERF.md): its fragments
-// come from shared memory through 16-byte loads, 10 per 12 DMMAs per warp.
+// m = nbr*b = 3072, k = nbc*b = 6144, n = nk*96 with nk = 1..14) the dense
+// work is 2*m*n*k flops against m*k reads of A^-1 per rank: n/4 flops per
+// byte of A^-1 in f64, n/2 in f32, n in bf16.  Against H100 SXM peaks
+// (3.35 TB/s; 67 TFLOP/s f64 on DMMA, 67 TFLOP/s f32 on FMA, 989 TFLOP/s
+// bf16) the ridge sits near n = 80 in f64, n = 40 in f32 and n = 295 in
+// bf16.  So every dense f64 launch (n >= 96) is bound by DMMA issue; bf16
+// launches with nk <= 3 are bound by reading A^-1 (which BN = b reads once)
+// and the wide ones by HMMA, where mma.sync tops out well below the 989
+// TFLOP/s that needs wgmma.  The dense loop reaches a bit over half of the
+// DMMA peak (PERF.md): its fragments come from shared memory through
+// 16-byte loads, 10 per 12 DMMAs per warp.  The masked loop is short (3 to
+// 24 slabs of 32 at b = 96), so each block's pipeline fill and its 64 x b
+// store of the partials weigh more against its multiply-adds, and each
+// kept A^-1 column panel is read by every k that keeps it (through L2).
 //
 // Checked on the card by `chip_smoke.py` (DMMA in every f64 instance and
 // HMMA in every bf16 one, counted with `cuobjdump -sass` on the built
@@ -84,8 +98,11 @@
 // Determinism.  Each output element is summed by one thread (one mma
 // accumulator slot) in one fixed K order: no split-K, no atomics.  The tile
 // choice never depends on Z, so item z of a batched launch is bitwise equal
-// to the same item launched alone.  Left to later work: wgmma + TMA for bf16,
-// and taking the U^ gather indices and the struct mask into the kernel.
+// to the same item launched alone; the masked loop keeps the dense loop's
+// ascending K order.  Left to later work: the row side of the mask (only
+// the rows in the struct of the level's supernodes are needed, 12x fewer
+// again on FEM, but the partial region's other rows are read downstream),
+// taking the U^ gather indices into the kernel, and wgmma + TMA for bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -450,12 +467,25 @@ __device__ __forceinline__ void stage_guarded(
   }
 }
 
-template <typename T, int BN>
+// The level product's struct mask: item z keeps column block j of B's k-th
+// column block (U^ block (k, j)) where p[(z % pm)*sz + k*sk + j*sj] is
+// nonzero, bool bytes read where they lie; nbc column blocks of K.
+struct Mask {
+  const unsigned char* p;
+  long long sz, sk, sj;
+  int pm, nbc;
+};
+
+// MASKED: each N tile is one k (BN = B's column block, checked at launch);
+// the K loop runs over the slabs of the column blocks j that the mask keeps
+// for (z, k), in ascending order, and over nothing else.
+template <typename T, int BN, bool MASKED>
 __global__ void __launch_bounds__(sizeof(T) == 4 ? 2 * BN : 128)  // Core::NT
 block_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
                   T* __restrict__ C, int M, int N, int K,
                   typename CoreOf<T, BN>::type::Acc alpha, Operand da,
-                  Operand db, Operand dc, int a_async, int b_async) {
+                  Operand db, Operand dc, int a_async, int b_async,
+                  Mask mk) {
   using Core = typename CoreOf<T, BN>::type;
   constexpr int BM = Core::BM, BK = Core::BK, NT = Core::NT;
   constexpr int STAGES = Core::STAGES, LD = Core::LD;
@@ -469,12 +499,32 @@ block_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
   // B columns at k = 0 (-1 past M or N), for the guarded path
   long long* offs = reinterpret_cast<long long*>(
       smem_raw + (size_t)STAGES * (BM + BN) * LD * sizeof(T));
+  // after the offsets, masked: the kept column blocks j, ascending
+  int* keep = reinterpret_cast<int*>(offs + BM + BN);
+  __shared__ int nkeep;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const long long z = blockIdx.z;
   const T* Az = A + z * da.sz;
   const T* Bz = B + z * db.sz;
+  if constexpr (MASKED) {
+    // warp 0 reads the (z, k) row of the mask 32 bytes at a time and
+    // compacts it by ballot: a kept j's place is the kept lanes below it
+    if (warp == 0) {
+      const unsigned char* row =
+          mk.p + (z % mk.pm) * mk.sz + (long long)blockIdx.x * mk.sk;
+      int n = 0;
+      for (int j0 = 0; j0 < mk.nbc; j0 += 32) {
+        const int j = j0 + lane;
+        const bool on = j < mk.nbc && row[j * mk.sj] != 0;
+        const unsigned bal = __ballot_sync(0xffffffffu, on);
+        if (on) keep[n + __popc(bal & ((1u << lane) - 1u))] = j;
+        n += __popc(bal);
+      }
+      if (lane == 0) nkeep = n;
+    }
+  }
   for (int i = tid; i < BM + BN; i += NT) {
     const int m = m0 + i, n = n0 + i - BM;
     offs[i] = i < BM ? (m < M ? row_off(da, m) : -1)
@@ -498,10 +548,16 @@ block_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
   __syncthreads();
   const bool a_kfast = da.ci == 1, b_kfast = db.ri == 1;
 
+  // masked: spb slabs a kept column block, and slab s at k0 of block
+  // keep[s / spb]; a skipped block is a whole number of slabs (BK divides
+  // its width), so every output element takes the dense loop's sequence of
+  // multiply-adds less those of exact zeros
+  const int spb = MASKED ? da.cblk / BK : 1;
   auto load = [&](int slab, int st) {
     T* As = smem + st * (BM + BN) * LD;
     T* Bs = As + BM * LD;
-    const int k0 = slab * BK;
+    const int k0 = MASKED ? keep[slab / spb] * da.cblk + (slab % spb) * BK
+                          : slab * BK;
     if (a_async)   // one block offset per slab: BK divides cblk
       stage_async<Core, BM>(As, arow, col_off(da, k0), m0, M, tid);
     else
@@ -515,7 +571,8 @@ block_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
 
   Core core;
   core.zero();
-  const int nslab = (K + BK - 1) / BK;
+  // a tile whose k keeps no block runs no slab and stores zeros
+  const int nslab = MASKED ? nkeep * spb : (K + BK - 1) / BK;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nslab) load(s, s);
@@ -554,10 +611,11 @@ bool aligned(const void* p, const long long* s, int n, int vec) {
   return true;
 }
 
-template <typename T, int BN>
+template <typename T, int BN, bool MASKED>
 int launch(const void* A, const void* B, void* C, int M, int N, int K, int Z,
            double alpha, const Operand& da, const Operand& db,
-           const Operand& dc, int a_async, int b_async, cudaStream_t stream) {
+           const Operand& dc, int a_async, int b_async, const Mask& mk,
+           cudaStream_t stream) {
   using Core = typename CoreOf<T, BN>::type;
   constexpr int VEC = 16 / sizeof(T);
   // the async path's preconditions, as `block_gemm.plan` decides them; a
@@ -570,9 +628,16 @@ int launch(const void* A, const void* B, void* C, int M, int N, int K, int Z,
   if (b_async && !(db.ri == 1 && db.rblk % Core::BK == 0 &&
                    K % Core::BK == 0 && aligned(B, sb, 4, VEC)))
     return 1001;
+  // masked: an N tile is one k (B's column blocks are BN wide), K is nbc
+  // column blocks of A and row blocks of B alike, and BK divides them
+  if (MASKED && !(mk.p && mk.pm > 0 && db.cblk == BN && N % BN == 0 &&
+                  da.cblk == db.rblk && da.cblk % Core::BK == 0 &&
+                  (long long)mk.nbc * da.cblk == K))
+    return 1002;
   const size_t smem = (size_t)Core::STAGES * (Core::BM + BN) * Core::LD * sizeof(T) +
-                      (size_t)(Core::BM + BN) * sizeof(long long);
-  auto kern = block_gemm_kernel<T, BN>;
+                      (size_t)(Core::BM + BN) * sizeof(long long) +
+                      (MASKED ? (size_t)mk.nbc * sizeof(int) : 0);
+  auto kern = block_gemm_kernel<T, BN, MASKED>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -580,22 +645,30 @@ int launch(const void* A, const void* B, void* C, int M, int N, int K, int Z,
   kern<<<grid, Core::NT, smem, stream>>>(
       static_cast<const T*>(A), static_cast<const T*>(B), static_cast<T*>(C),
       M, N, K, static_cast<typename Core::Acc>(alpha), da, db, dc, a_async,
-      b_async);
+      b_async, mk);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the compiled tiles: BN in {64, 96, 128}, BM and BK fixed per type
+// the compiled tiles: BN in {64, 96, 128}, BM and BK fixed per type; the
+// masked K loop at BN in {96, 128}, the level product's b
 template <typename T>
 int launch_bn(int bm, int bn, int bk, const void* A, const void* B, void* C,
               int M, int N, int K, int Z, double alpha, const Operand& da,
               const Operand& db, const Operand& dc, int a_async, int b_async,
-              cudaStream_t s) {
+              const Mask& mk, cudaStream_t s) {
   using C64 = typename CoreOf<T, 64>::type;
   if (bm != C64::BM || bk != C64::BK) return 1000;
+  const bool m = mk.p != nullptr;
   switch (bn) {
-    case 64: return launch<T, 64>(A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, s);
-    case 96: return launch<T, 96>(A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, s);
-    case 128: return launch<T, 128>(A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, s);
+    case 64:
+      if (m) return 1000;
+      return launch<T, 64, false>(A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, mk, s);
+    case 96:
+      if (m) return launch<T, 96, true>(A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, mk, s);
+      return launch<T, 96, false>(A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, mk, s);
+    case 128:
+      if (m) return launch<T, 128, true>(A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, mk, s);
+      return launch<T, 128, false>(A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, mk, s);
     default: return 1000;
   }
 }
@@ -606,20 +679,30 @@ int launch_bn(int bm, int bn, int bk, const void* A, const void* B, void* C,
 // `block_gemm.plan` chose (one of the compiled instances); a_async/b_async:
 // stage that operand with cp.async (else guarded element loads).  desc: 21
 // int64 values, seven (sz, rblk, ro, ri, cblk, co, ci) for each of A, B, C,
-// in elements.  Returns the cudaError_t of the launch (0 on success); 1000
-// for an unknown dtype or tile, 1001 for an async flag on an operand that is
-// not K-contiguous and 16-byte aligned.
+// in elements.  mask: null for the dense product, else the level product's
+// struct mask, (pm, nk, nbc) bool bytes at strides mstride (three int64,
+// in bytes), item z reading row z % pm.  Returns the cudaError_t of the
+// launch (0 on success); 1000 for an unknown dtype or tile, 1001 for an
+// async flag on an operand that is not K-contiguous and 16-byte aligned,
+// 1002 for a mask on a product whose N tile is not one column block.
 extern "C" int block_gemm_launch(int dtype, int bm, int bn, int bk,
                                  int a_async, int b_async, const void* A,
                                  const void* B, void* C, int M, int N, int K,
                                  int Z, double alpha, const long long* desc,
-                                 void* stream) {
+                                 const void* mask, int pm, int nbc,
+                                 const long long* mstride, void* stream) {
   const Operand da = unpack(desc), db = unpack(desc + 7), dc = unpack(desc + 14);
+  Mask mk{static_cast<const unsigned char*>(mask), 0, 0, 0, pm, nbc};
+  if (mask) {
+    mk.sz = mstride[0];
+    mk.sk = mstride[1];
+    mk.sj = mstride[2];
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_bn<float>(bm, bn, bk, A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, s);
-    case 1: return launch_bn<__nv_bfloat16>(bm, bn, bk, A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, s);
-    case 2: return launch_bn<double>(bm, bn, bk, A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, s);
+    case 0: return launch_bn<float>(bm, bn, bk, A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, mk, s);
+    case 1: return launch_bn<__nv_bfloat16>(bm, bn, bk, A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, mk, s);
+    case 2: return launch_bn<double>(bm, bn, bk, A, B, C, M, N, K, Z, alpha, da, db, dc, a_async, b_async, mk, s);
     default: return 1000;
   }
 }

@@ -53,43 +53,45 @@ def block_gemm_acc(acc, a, b, alpha=-1.0):
 
 
 def pselinv_level_gemm(Ainv, Uh_m, out=None):
-    """The sweep's masked block-GEMM for one elimination-tree level:
-    ``partial[…, k, i] = Σ_j Ainv[…, i, j] @ Uh_m[…, k, j]ᵀ`` — all of a
-    level's supernodes, for every leading (batch, rank) index, in one
-    kernel launch.
-
-    Ainv: (…, nbr, nbc, b, b) local A⁻¹ block grids; Uh_m: (…, nk, nbc,
-    b, b) struct-masked Û stacks. Returns (…, nk, nbr, b, b) partial
-    products, written into ``out`` when given (e.g. a view of the sweep's
-    arena). The leading dims are flattened into the kernel's batch index
-    as views, so a strided arena slice is read where it lies."""
-    lead = Ainv.shape[:-4]
-    nbr, nbc, b = Ainv.shape[-4], Ainv.shape[-3], Ainv.shape[-1]
-    nk = Uh_m.shape[-4]
-    if Uh_m.shape[:-4] != lead:
-        raise ValueError(f"batch dims differ: {tuple(Ainv.shape)} vs "
-                         f"{tuple(Uh_m.shape)}")
-    a = Ainv.reshape((-1, nbr, nbc, b, b))
-    u = Uh_m.reshape((-1, nk, nbc, b, b))
-    o = None if out is None else out.view((-1, nk, nbr, b, b))
-    p = blocked_gemm(a, u, out=o)
-    return p.view(lead + (nk, nbr, b, b)) if out is None else out
+    """The sweep's block-GEMM for one elimination-tree level over Û
+    stacks masked beforehand: :func:`pselinv_round_gemm` with no mask."""
+    return pselinv_round_gemm(Ainv, Uh_m, None, out=out)
 
 
 def pselinv_round_gemm(Ainv, Uh, cmask, out=None):
     """Masked sweep GEMM keyed by a *round* of the overlapped stream: the
     struct mask arrives per round boundary (whatever elimination-tree
-    level fires there).
+    level fires there). ``partial[…, k, i] = Σ_j cmask[…, k, j] ·
+    Ainv[…, i, j] @ Uh[…, k, j]ᵀ`` — all of a level's supernodes, for
+    every leading (batch, rank) index, in one kernel launch.
 
     Ainv: (…, nbr, nbc, b, b) local A⁻¹ grids; Uh: (…, nk, nbc, b, b) raw
-    Û stacks straight out of the comm arena; cmask: (…, nk, nbc) struct
-    mask of the firing level, bool or 0/1 values. Returns (…, nk, nbr, b,
-    b) partial products through :func:`pselinv_level_gemm`."""
-    if cmask.dtype == torch.bool:
-        Uh_m = torch.where(cmask[..., None, None], Uh, 0.0)
-    else:
-        Uh_m = Uh * cmask[..., None, None].to(Uh.dtype)
-    return pselinv_level_gemm(Ainv, Uh_m, out=out)
+    Û stacks straight out of the comm arena; cmask: None (every j), or
+    the (…, nk, nbc) struct mask of the firing level, bool or 0/1 values,
+    whose leading dims broadcast against Ainv's. Returns (…, nk, nbr, b,
+    b) partial products, written into ``out`` when given (e.g. a view of
+    the sweep's arena). The leading dims are flattened into the kernel's
+    batch index as views, so a strided arena slice is read where it lies;
+    so is a mask whose leading dims are the last of Ainv's (one (P, nk,
+    nbc) table over a (B, P) lead, item z taking its row z % P), which
+    :func:`~.block_gemm.blocked_gemm` hands to the kernel: no masked copy
+    of Û is made where the kernel skips the blocks itself."""
+    lead = Ainv.shape[:-4]
+    nbr, nbc, b = Ainv.shape[-4], Ainv.shape[-3], Ainv.shape[-1]
+    nk = Uh.shape[-4]
+    if Uh.shape[:-4] != lead:
+        raise ValueError(f"batch dims differ: {tuple(Ainv.shape)} vs "
+                         f"{tuple(Uh.shape)}")
+    a = Ainv.reshape((-1, nbr, nbc, b, b))
+    u = Uh.reshape((-1, nk, nbc, b, b))
+    o = None if out is None else out.view((-1, nk, nbr, b, b))
+    if cmask is not None:
+        ml = cmask.shape[:-2]
+        if len(ml) > len(lead) or lead[len(lead) - len(ml):] != ml:
+            cmask = cmask.expand(lead + cmask.shape[-2:])
+        cmask = cmask.reshape((-1,) + cmask.shape[-2:])
+    p = blocked_gemm(a, u, out=o, cmask=cmask)
+    return p.view(lead + (nk, nbr, b, b)) if out is None else out
 
 
 class FlashAttentionFn(torch.autograd.Function):

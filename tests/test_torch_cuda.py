@@ -21,7 +21,8 @@ forward's output unchanged by its log-sum-exp output, and the autograd
 functions launching the backward kernels; and the mesh at world 1 (one
 NCCL rank): the transport, the kernels through ``local_map``, and the
 sharded steps of jamba, xlstm-125m and seamless bitwise their one-device
-steps.
+steps; and the block GEMM's K loop cut by the level's struct mask,
+bitwise the dense kernel on the masked Û.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one, save the check that ``ModelAPI.init(device="cuda")`` raises on a
@@ -1512,3 +1513,164 @@ def test_family_sharded_steps_bitwise_on_the_card(cuda_device, arch):
     (res,) = p2p.spawn(_family_sharded_rank, 1, arch, backend="nccl",
                        timeout=600)
     assert res["train"] and res["prefill"] and res["decode"], res
+
+
+# ---- the level product's struct mask in the kernel -------------------------
+
+def _keep_mask(P, nk, nbc, keep, seed, dev):
+    """A (P, nk, nbc) bool mask whose every (rank, k) row keeps ``keep``
+    column blocks (all of them for ``keep`` ≥ nbc) at random places."""
+    g = np.random.default_rng(seed)
+    m = np.zeros((P, nk, nbc), bool)
+    for p in range(P):
+        for k in range(nk):
+            m[p, k, g.permutation(nbc)[:min(keep, nbc)]] = True
+    return torch.from_numpy(m).to(dev)
+
+
+def _randn_on(shape, dtype, dev, seed):
+    """Standard normal f64 values drawn on the card from ``seed``, in
+    ``dtype``: the level product's larger grids without a host copy."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=torch.float64,
+                       device=dev).to(dtype)
+
+
+def _masked_against_dense(Ainv, U, cm, out=None):
+    """The masked kernel's product, asserted bitwise the dense kernel's on
+    ``where(cm, U, 0)`` and launched as one masked launch."""
+    dense = bg.blocked_gemm(Ainv, bg.mask_uh(U, cm))
+    before, masked0 = bg.launches, sum(
+        c for k, c in bg.plans.items() if k[-1] == "masked")
+    got = bg.blocked_gemm(Ainv, U, out=out, cmask=cm)
+    torch.cuda.synchronize()
+    assert bg.launches - before == 1
+    assert sum(c for k, c in bg.plans.items()
+               if k[-1] == "masked") - masked0 == 1
+    assert torch.equal(got, dense)
+    return got
+
+
+@pytest.mark.parametrize("nbc", [10, 33, 64])
+@pytest.mark.parametrize("Z", [8, 32])
+@pytest.mark.parametrize("nk", [1, 3, 14])
+@pytest.mark.parametrize("b", [96, 128])
+@pytest.mark.parametrize("dtype", GEMM_TYPES)
+def test_masked_k_loop_is_bitwise_the_dense_product(cuda_device, dtype, b,
+                                                    nk, Z, nbc):
+    """The K loop over the kept column blocks only gives the bits of the
+    dense kernel on the masked Û, with every (rank, k) row keeping 0, 1,
+    8 or all of its nbc blocks, the mask (P, nk, nbc) over Z = B·P items
+    (item z reads row z % P); and a row that keeps nothing stores zeros
+    into every element of its tile. Past 32 column blocks the ballot
+    takes a second word: rows that keep blocks on both sides of j = 32,
+    and rows that keep only j ≥ 32, list them in order too."""
+    P, nbr = 8, 3
+    Ainv = _randn_on((Z, nbr, nbc, b, b), dtype, cuda_device, b + nk)
+    U = _randn_on((Z, nk, nbc, b, b), dtype, cuda_device, Z + nk)
+    masks = [(keep, _keep_mask(P, nk, nbc, keep, keep + nk, cuda_device))
+             for keep in (0, 1, 8, nbc)]
+    if nbc > 32:
+        for js in ([0, 31, 32, nbc - 1], [32, nbc - 1]):
+            cm = torch.zeros(P, nk, nbc, dtype=torch.bool,
+                             device=cuda_device)
+            cm[:, :, js] = True
+            cm[P - 1, nk - 1] = False
+            masks.append((None, cm))
+    for keep, cm in masks:
+        out = torch.full((Z, nk, nbr, b, b), float("nan"), dtype=dtype,
+                         device=cuda_device)
+        got = _masked_against_dense(Ainv, U, cm, out=out)
+        assert got is out
+        if keep == 0:
+            assert not out.any()
+        if keep == nbc:
+            assert torch.equal(out, bg.blocked_gemm(Ainv, U))
+
+
+@pytest.mark.parametrize("dtype", GEMM_TYPES)
+def test_masked_k_loop_on_arena_views(cuda_device, dtype):
+    """The sweep's form: A⁻¹ and the partials strided views of one
+    arena, Û gathered, the mask a strided slice of an NK-padded level
+    table (its padded rows keep nothing and write zeros) over a (B, P)
+    lead through ``pselinv_round_gemm``; bitwise the dense product."""
+    from repro_torch.kernels import ops
+    B, P, nbr, nbc, nk, NK, b = 2, 8, 3, 10, 3, 5, 96
+    arena = _randn((B, P, 80, b, b), dtype, cuda_device, 3)
+    Ainv = arena[:, :, :nbr * nbc].view(B, P, nbr, nbc, b, b)
+    partial = arena[:, :, 40:40 + NK * nbr].view(B, P, NK, nbr, b, b)
+    U = arena.view(B, P * 80, b, b).index_select(
+        1, torch.arange(P * NK * nbc, device=cuda_device) % (P * 80)
+    ).view(B, P, NK, nbc, b, b)
+    table = torch.zeros(4, P, NK, nbc, dtype=torch.bool, device=cuda_device)
+    table[2, :, :nk] = _keep_mask(P, nk, nbc, 4, 1, cuda_device)
+    cm = table[2]
+    assert not table[2, :, :nk].is_contiguous()
+    ref = bg.blocked_gemm(Ainv.reshape(-1, nbr, nbc, b, b),
+                          bg.mask_uh(U.reshape(-1, NK, nbc, b, b), cm))
+    before = bg.launches
+    got = ops.pselinv_round_gemm(Ainv, U, cm, out=partial)
+    torch.cuda.synchronize()
+    assert got is partial and bg.launches - before == 1
+    assert torch.equal(partial.reshape(ref.shape), ref)
+    assert not partial[:, :, nk:].any()
+    # cut to the level's own nk: the strided slice itself
+    got = ops.pselinv_round_gemm(Ainv, U[:, :, :nk], table[2, :, :nk])
+    assert torch.equal(got, partial[:, :, :nk])
+
+
+@pytest.mark.parametrize("dtype", GEMM_TYPES)
+def test_masked_k_loop_on_guarded_staging(cuda_device, dtype):
+    """Operands one element off 16-byte alignment take the guarded
+    element loads over the same kept slabs: the bits of the cp.async
+    path and of the dense product."""
+    Z, nbr, nbc, nk, b = 8, 2, 6, 2, 128
+    Ainv = _randn((Z, nbr, nbc, b, b), dtype, cuda_device, 4)
+    U = _randn((Z, nk, nbc, b, b), dtype, cuda_device, 5)
+    Am, Um = _misaligned(Ainv), _misaligned(U)
+    desc = bg.blocked_desc(Am.stride(), Um.stride(),
+                           (nk * nbr * b * b, nbr * b * b, b * b, b, 1), b)
+    p = bg.plan(nbr * b, nk * b, nbc * b, dtype, desc,
+                (Am.data_ptr(), Um.data_ptr()))
+    assert not p.a_async and not p.b_async and p.bn == b
+    cm = _keep_mask(Z, nk, nbc, 3, 6, cuda_device)
+    fast = _masked_against_dense(Ainv, U, cm)
+    guarded = _masked_against_dense(Am, Um, cm)
+    assert torch.equal(guarded, fast)
+
+
+def test_fem_solve_equals_the_mask_then_dense_op(cuda_device, monkeypatch):
+    """A FEM engine at b = 96: every level product takes the masked K
+    loop, and the solve (a graph replay) is bitwise the eager sweep run
+    with the op in its earlier form, Û masked by ``where`` and the dense
+    kernel over the whole grid."""
+    from repro_torch.core import pselinv_dist as pd
+    from repro_torch.kernels import ops
+    A = sparse.make_numeric(sparse.fem3d_like_matrix(8, 8, 8, 3)[0],
+                            symmetric_values=True)
+    PSelInvEngine.clear_cache()
+    eng = PSelInvEngine.analyze(A, b=96, grid=Grid(4, 2))
+    vals = eng.prepare_values(A)
+    bg.plans.clear()
+    got = eng.solve(vals, dtype=torch.float64)
+    torch.cuda.synchronize()
+    run = eng._fns[(False, 1, torch.float64)]
+    assert run.gemm_nodes == run.gemm_launches == eng.gemm_ops()
+    assert {k[-1] for k in run.gemm_plans} == {"masked"}
+
+    def mask_then_dense(Ainv, Uh, cmask, out=None):
+        if cmask.dtype == torch.bool:
+            Uh_m = torch.where(cmask[..., None, None], Uh, 0.0)
+        else:
+            Uh_m = Uh * cmask[..., None, None].to(Uh.dtype)
+        return ops.pselinv_level_gemm(Ainv, Uh_m, out=out)
+
+    monkeypatch.setattr(pd, "pselinv_round_gemm", mask_then_dense)
+    bg.plans.clear()
+    ref = eng.sweep()(vals.Lh, vals.Dinv)
+    torch.cuda.synchronize()
+    assert bg.plans and all(k[-1] != "masked" for k in bg.plans)
+    assert torch.equal(got, ref)
+    cpu = PSelInvEngine.analyze(A, b=96, grid=Grid(4, 2), device="cpu")
+    want = cpu.solve(cpu.prepare_values(A), dtype=torch.float64)
+    assert _close(got.cpu(), want, torch.float64)
